@@ -1,0 +1,113 @@
+"""Config system: the YAML tree of ``configs/`` with single-parent inheritance.
+
+Same resolution as ``point_slam_tpu.config.load_config``: a scene yaml may
+name a parent via ``inherit_from``; parents load first and are overridden by
+the child; the CLI supplies ``configs/point_slam.yaml`` as the default root.
+GPU knobs live in a ``cuda:`` section (merged from ``CUDA_DEFAULTS``) in
+place of the JAX package's ``tpu:`` section, which this package does not
+read.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from typing import Any, Dict, Optional
+
+import yaml
+
+# Only the knobs the port reads.
+CUDA_DEFAULTS: Dict[str, Any] = {
+    "cuda": {
+        "point_capacity_init": 1 << 17,   # initial padded point buffer rows
+        "point_capacity_max": 1 << 22,    # hard cap (ids ride as f32 values,
+                                          # exact below 2^24)
+        "grid_table_size": 1 << 16,       # cell-table buckets
+        "grid_max_per_cell": 64,          # candidate slots per bucket (C)
+        "knn_probes": 27,                 # probe slots per ray (P) of the
+                                          # ray-shared kNN
+        "ray_knn": "auto",                # ray-shared kNN in the renderer:
+                                          # 'auto' (on CUDA) | True | False
+        "knn_packed_coords": "auto",      # lattice-packed cell table:
+                                          # 'auto' (on CUDA) | True | False
+        "keyframe_device_budget": 1024,   # keyframes held on the device
+    },
+}
+
+
+def update_recursive(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> None:
+    """Recursively override ``dict1`` with entries from ``dict2`` (in place)."""
+    for k, v in dict2.items():
+        if isinstance(v, dict):
+            if not isinstance(dict1.get(k), dict):
+                dict1[k] = {}
+            update_recursive(dict1[k], v)
+        else:
+            dict1[k] = v
+
+
+def load_config(path: str, default_path: Optional[str] = None
+                ) -> Dict[str, Any]:
+    """Load a YAML config, following its ``inherit_from`` chain.
+
+    ``inherit_from`` resolves against the process CWD first, then against
+    the repository root, so configs work from any CWD.
+    """
+    with open(path, "r") as f:
+        cfg_special = yaml.safe_load(f) or {}
+
+    inherit_from = cfg_special.get("inherit_from")
+    if inherit_from is not None:
+        parent = inherit_from
+        if not os.path.exists(parent):
+            here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            cand = os.path.join(here, inherit_from)
+            if os.path.exists(cand):
+                parent = cand
+        cfg = load_config(parent, default_path)
+    elif default_path is not None:
+        with open(default_path, "r") as f:
+            cfg = yaml.safe_load(f) or {}
+        base = copy.deepcopy(CUDA_DEFAULTS)
+        update_recursive(base, cfg)
+        cfg = base
+    else:
+        cfg = copy.deepcopy(CUDA_DEFAULTS)
+
+    update_recursive(cfg, cfg_special)
+    return cfg
+
+
+def check_supported(cfg: Dict[str, Any], will_refine: bool = False) -> None:
+    """Raise NotImplementedError for every path this port does not carry yet.
+
+    ``will_refine``: the run reaches the sequence's last frame, where
+    ``mapping.color_refine`` would run.
+    """
+    mp, tr = cfg["mapping"], cfg["tracking"]
+    cuda = cfg.get("cuda", {})
+    unsupported = [
+        (mp.get("BA"), "bundle adjustment (mapping.BA)"),
+        (cfg["model"].get("encode_exposure"),
+         "exposure compensation (model.encode_exposure)"),
+        (mp.get("color_refine") and will_refine,
+         "colour refinement at the last frame (mapping.color_refine)"),
+        (mp.get("vis_inside") or tr.get("vis_inside"),
+         "in-loop visualisation (vis_inside)"),
+        (cfg["rendering"].get("sample_near_pcl"),
+         "near-cloud sampling of depth-free rays (rendering.sample_near_pcl)"),
+        (cfg.get("wandb"), "the metrics sink (wandb)"),
+        (cuda.get("keyframe_host_ring") not in (None, False, "auto"),
+         "the host-side keyframe ring (cuda.keyframe_host_ring)"),
+        (int(cuda.get("data_parallel", 1) or 1) > 1,
+         "data parallelism (cuda.data_parallel > 1)"),
+        (cuda.get("knn_packed_coords") == "fused",
+         "the fused coords|ids cell table (cuda.knn_packed_coords: fused)"),
+        (cuda.get("fused_adam") not in (None, False),
+         "the fused row-Adam (cuda.fused_adam)"),
+    ]
+    for on, what in unsupported:
+        if on:
+            raise NotImplementedError(
+                f"point_slam_tpu_torch does not implement {what} yet; turn it "
+                f"off in the config or run point_slam_tpu")

@@ -1,0 +1,544 @@
+"""Mapper: per-frame scene optimisation.
+
+The port of ``point_slam_tpu.mapper``. Per mapped frame the host picks the
+keyframe window, densifies the cloud, computes the frustum gradient mask
+and the iteration budget; then ``map_optimize`` runs the two-stage
+(geometry -> colour) Adam optimisation as a Python loop over autograd:
+rays sampled from the device-resident keyframe window, rendering, masked
+losses, and per-group Adam steps. The packed (CAP, 72) cloud is one leaf
+with per-column learning rates and step counts; the frustum row mask
+multiplies its gradient. The colour groups restart their step count at the
+geometry -> colour switch, as torch.optim.Adam does for a group whose first
+gradient arrives there. The loop has no host sync per iteration apart from
+the count of non-compact rays in the kNN fallback.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from point_slam_tpu_torch import pointcloud as pc
+from point_slam_tpu_torch import renderer as R
+from point_slam_tpu_torch.common import camera, image, sampling
+from point_slam_tpu_torch.ops import adam
+
+
+class MapperStatic(NamedTuple):
+    h: int
+    w: int
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    r_max: int            # ray batch size == mapping.pixels
+    f_max: int            # window slots
+    w_color_loss: float
+    frustum_edge: float
+    fix_geo_decoder: bool
+    n_add: int
+    near_end_surface_pc: float
+    far_end_surface_pc: float
+    add_max: int          # candidate rays for uniform densification
+    grad_max: int         # candidate rays for colour-gradient densification
+    grad_top: int         # top-k pool for colour-gradient selection
+
+
+class KeyframeStore:
+    """Keyframe database: poses on the host, images on the device as
+    (H,W,5) u8 wire frames in one ring tensor. r_query is recomputed from
+    the decoded colour when a window is gathered."""
+
+    def __init__(self, cfg, h: int, w: int, n_img: int, keyframe_every: int,
+                 device):
+        cu = cfg["cuda"]
+        expected = n_img // max(keyframe_every, 1) + 4
+        budget = int(cu["keyframe_device_budget"])
+        if expected > budget:
+            raise NotImplementedError(
+                f"{expected} keyframes exceed cuda.keyframe_device_budget="
+                f"{budget}; point_slam_tpu_torch does not implement the host "
+                "keyframe ring yet")
+        self.h, self.w = h, w
+        self.device = device
+        self.est_c2w: List[np.ndarray] = []
+        self.depth_scale = float(cfg["cam"]["png_depth_scale"])
+        pcfg = cfg["pointcloud"]
+        self.dyn = bool(cfg["use_dynamic_radius"])
+        self.rq_args = (pcfg["radius_add_max"], pcfg["radius_add_min"],
+                        pcfg["radius_query_ratio"], pcfg["color_grad_threshold"])
+        self.rq_fixed = pcfg["radius_query"]
+        self.capacity = max(min(budget, expected), 4)
+        self.ring = torch.zeros((self.capacity, h, w, 5), dtype=torch.uint8,
+                                device=device)
+
+    def append(self, color_dev, depth_dev, est_c2w) -> None:
+        slot = len(self.est_c2w)
+        if slot >= self.capacity:
+            raise RuntimeError(
+                f"keyframe ring overflow: keyframe #{slot + 1} exceeds the "
+                f"ring capacity {self.capacity}")
+        self.ring[slot] = image.encode_wire_frame(color_dev, depth_dev,
+                                                  self.depth_scale)
+        self.est_c2w.append(np.asarray(est_c2w, np.float32))
+
+    def est_c2w_padded(self, min_pad: int = 64) -> torch.Tensor:
+        """(K',4,4) poses padded with identities to a power of two."""
+        n = len(self.est_c2w)
+        k = max(min_pad, 1 << max(n - 1, 0).bit_length())
+        arr = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
+        if n:
+            arr[:n] = np.stack(self.est_c2w)
+        return torch.as_tensor(arr, device=self.device)
+
+    def gather_window(self, sel: Sequence[int], f_max: int):
+        """Window tensors (f_max leading dim) for keyframe slots ``sel``;
+        slots past len(sel) are padding (r_query 1e6)."""
+        slots = torch.as_tensor((list(sel) + [0] * f_max)[:f_max],
+                                device=self.device)
+        color, depth = image.decode_wire_frame(self.ring[slots],
+                                               1.0 / self.depth_scale)
+        rq = torch.full(depth.shape, 1e6, device=self.device)
+        for k in range(len(sel)):
+            rq[k] = (image.dynamic_radius_maps(color[k], *self.rq_args)[1]
+                     if self.dyn else self.rq_fixed)
+        c2w = np.tile(np.eye(4, dtype=np.float32), (f_max, 1, 1))
+        for k, s in enumerate(sel):
+            c2w[k] = self.est_c2w[s]
+        return color, depth, rq, torch.as_tensor(c2w, device=self.device)
+
+
+def overlap_scores(ms: MapperStatic, ring_est_c2w, n_kf: int, cur_c2w,
+                   gt_depth, i, j, n_samples: int = 8):
+    """Fraction of the current frame's surface samples (at pixels i, j)
+    inside each keyframe's frustum. (K,) scores; slots >= n_kf get -1."""
+    dep = sampling.gather_pixels(gt_depth, i, j)
+    ok = dep > 0
+    rays_o, rays_d = camera.rays_from_uv(i, j, cur_c2w, ms.fx, ms.fy, ms.cx,
+                                         ms.cy)
+    t = torch.linspace(0.0, 1.0, n_samples, device=dep.device)
+    near = (dep * 0.8)[:, None]
+    far = (dep + 0.5)[:, None]
+    z = near * (1 - t)[None, :] + far * t[None, :]
+    pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
+    pt_ok = ok.repeat_interleave(n_samples)
+    scores = []
+    edge = 20
+    for c2w in ring_est_c2w:
+        u, v, zc = camera.project_points(pts, torch.linalg.inv(c2w), ms.fx,
+                                         ms.fy, ms.cx, ms.cy)
+        m = ((u < ms.w - edge) & (u > edge) & (v < ms.h - edge) & (v > edge)
+             & (zc < 0) & pt_ok)
+        scores.append(m.sum() / torch.clamp(pt_ok.sum(), min=1))
+    scores = torch.stack(scores)
+    k = ring_est_c2w.shape[0]
+    return torch.where(torch.arange(k, device=dep.device) < n_kf, scores, -1.0)
+
+
+def prepare_frame(color, r_add_max: float, r_add_min: float, ratio: float,
+                  thr: float, grad_top: int):
+    """Dynamic radius maps + colour-gradient candidate pool for one frame."""
+    r_add, r_query = image.dynamic_radius_maps(color, r_add_max, r_add_min,
+                                               ratio, thr)
+    grad = image.color_gradient_magnitude(color)
+    h, w = grad.shape
+    cand_idx, cand_ok = sampling.top_gradient_candidates(grad, 0, h, 0, w,
+                                                         grad_top)
+    return r_add, r_query, cand_idx, cand_ok
+
+
+def _sample_window_rays(ms: MapperStatic, window, n_frames: int,
+                        pixs_per_image: int, i=None, j=None,
+                        generator: Optional[torch.Generator] = None):
+    """One iteration's ray batch from the keyframe window: pixel columns
+    ``i`` and rows ``j`` (r_max each, drawn from ``generator`` when not
+    given). Returns a dict of per-ray tensors with camera-space dirs, the
+    window slot and the validity mask."""
+    color, depth, rquery = window
+    dev = depth.device
+    rmax = ms.r_max
+    slot = torch.arange(rmax, device=dev) // max(pixs_per_image, 1)
+    ray_ok = slot < n_frames
+    slot = torch.clamp(slot, max=ms.f_max - 1)
+    if i is None:
+        i = torch.randint(0, ms.w, (rmax,), generator=generator, device=dev)
+        j = torch.randint(0, ms.h, (rmax,), generator=generator, device=dev)
+    i, j = i.long(), j.long()
+    col = color[slot, j, i]
+    dep = depth[slot, j, i]
+    rq = rquery[slot, j, i]
+    dirs = torch.stack([(i.float() - ms.cx) / ms.fx,
+                        -(j.float() - ms.cy) / ms.fy,
+                        -torch.ones(rmax, device=dev)], -1)
+    ray_ok &= dep > 0
+    med = image.masked_median(dep, ray_ok)
+    mx = image.masked_max(dep, ray_ok)
+    ray_ok &= dep <= torch.minimum(10.0 * med, 1.2 * mx)
+    return dict(dirs_cam=dirs, gt_depth=dep, gt_color=col, r_query=rq,
+                slot=slot, ray_ok=ray_ok)
+
+
+def _rays_world(rays, c2w_all):
+    """World-space ray origins/directions from the per-slot poses."""
+    c2w = c2w_all[rays["slot"]]
+    rays_d = torch.einsum("rkl,rl->rk", c2w[:, :3, :3], rays["dirs_cam"])
+    return c2w[:, :3, 3], rays_d
+
+
+def _losses(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index, rays,
+            c2w_all, stage_color: bool, fill: torch.Tensor):
+    """Masked geometry (+colour) L1 losses of one ray batch. Returns
+    (loss, geo_loss, color_loss, n_mask)."""
+    rays_o, rays_d = _rays_world(rays, c2w_all)
+    depth, _, color, valid_ray = R.render_rays(
+        dec, packed, index, rays_o, rays_d, rays["gt_depth"],
+        rays["r_query"], rays["ray_ok"], rc, stage_color=stage_color,
+        fill=fill)
+    mask = (rays["gt_depth"] > 0) & valid_ray & rays["ray_ok"]
+    mask &= ~torch.isnan(depth)
+    geo_loss = torch.sum(torch.where(mask, torch.abs(rays["gt_depth"] - depth),
+                                     0.0))
+    loss = geo_loss
+    color_loss = torch.zeros((), device=depth.device)
+    if stage_color:
+        color_loss = torch.sum(torch.where(
+            mask[:, None], torch.abs(rays["gt_color"] - color), 0.0))
+        loss = loss + ms.w_color_loss * color_loss
+    return loss, geo_loss, color_loss, mask.sum()
+
+
+def _column_rows(device):
+    geo_cols = torch.zeros(pc.PACK_W, device=device)
+    geo_cols[pc.GEO_SL] = 1.0
+    col_cols = torch.zeros(pc.PACK_W, device=device)
+    col_cols[pc.COL_SL] = 1.0
+    return geo_cols, col_cols
+
+
+def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
+                 window, n_frames: int, pixs_per_image: int, frustum,
+                 lr_geo_stage: Sequence[float], lr_color_stage: Sequence[float],
+                 fix_color: float, geo_iter_bound: int, n_iters: int,
+                 generator: Optional[torch.Generator] = None, draws=None):
+    """The per-frame mapping optimisation, a loop of ``n_iters`` iterations.
+
+    ``window``: (color (F,H,W,3), depth (F,H,W), r_query (F,H,W),
+    c2w (F,4,4)). LR triples are [decoders, geometry_feats, color_feats] per
+    stage; iteration ``it <= geo_iter_bound`` is the geometry stage.
+    ``fix_color`` 0.0 freezes the colour decoder. ``draws``: optional
+    per-iteration list of (i, j, fill); drawn from ``generator`` otherwise.
+
+    Updates ``dec`` in place and returns (packed, stats (3,) device tensor
+    [geo_loss, color_loss, n_mask] of the last iteration).
+    """
+    color, depth, rquery, c2w_all = window
+    dev = packed.device
+    col_params = list(dec.col.parameters())
+    geo_params = [] if ms.fix_geo_decoder else list(dec.geo.parameters())
+    leaves = [packed.detach()] + col_params + geo_params
+    state = adam.init_state(leaves)
+    n_col = len(col_params)
+    geo_cols, col_cols = _column_rows(dev)
+    rest_cols = 1.0 - geo_cols - col_cols
+    lr_rows = [geo_cols * lrs[1] + col_cols * lrs[2]
+               for lrs in (lr_geo_stage, lr_color_stage)]
+    frustum_f = frustum[:, None].float()
+    stats = torch.zeros(3, device=dev)
+    for it in range(n_iters):
+        i, j, fill = draws[it] if draws is not None else (None, None, None)
+        rays = _sample_window_rays(ms, (color, depth, rquery), n_frames,
+                                   pixs_per_image, i, j, generator)
+        if fill is None:
+            fill = R.draw_fill(generator, dev)
+        stage_geo = it <= geo_iter_bound
+        packed_leaf = leaves[0].requires_grad_(True)
+        loss, geo_l, col_l, n_mask = _losses(
+            ms, rc, dec, packed_leaf, index, rays, c2w_all,
+            stage_color=not stage_geo, fill=fill)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            grads[0] = grads[0] * frustum_f
+            for k in range(1, 1 + n_col):
+                grads[k] = grads[k] * fix_color
+            lrs = lr_geo_stage if stage_geo else lr_color_stage
+            t_geo = float(it + 1)
+            t_col = float(max(it - geo_iter_bound, 1))
+            t_row = geo_cols * t_geo + col_cols * t_col + rest_cols * t_geo
+            lr_row = lr_rows[0] if stage_geo else lr_rows[1]
+            ts = [t_row] + [t_col] * n_col + [t_geo] * len(geo_params)
+            lr_all = [lr_row] + [lrs[0]] * (len(leaves) - 1)
+            new, state = adam.update([p.detach() for p in leaves], grads,
+                                     state, ts, lr_all)
+            for p, q in zip(leaves[1:], new[1:]):
+                p.copy_(q)
+            leaves[0] = new[0]
+            stats = torch.stack([geo_l.detach(), col_l.detach(),
+                                 n_mask.float()])
+    return leaves[0].detach(), stats
+
+
+def sample_add_rays(ms: MapperStatic, c2w, gt_color, gt_depth, r_add,
+                    n_rays: int, generator=None, i=None, j=None):
+    """Uniform candidate rays for densification: add_max candidates, the
+    first n_rays marked valid."""
+    dev = gt_depth.device
+    if i is None:
+        i, j = sampling.sample_pixels_uniform(0, ms.h, 0, ms.w, ms.add_max,
+                                              generator, dev)
+    valid = torch.arange(ms.add_max, device=dev) < n_rays
+    rays_o, rays_d = camera.rays_from_uv(i, j, c2w, ms.fx, ms.fy, ms.cx, ms.cy)
+    return (rays_o, rays_d, sampling.gather_pixels(gt_depth, i, j),
+            sampling.gather_pixels(gt_color, i, j),
+            sampling.gather_pixels(r_add, i, j), valid)
+
+
+def sample_grad_rays(ms: MapperStatic, c2w, gt_color, gt_depth, r_add,
+                     cand_idx, cand_ok, generator=None, scores=None):
+    """Colour-gradient candidate rays: grad_max distinct picks from the
+    top-gradient pool (``scores``: optional uniform draws over the pool)."""
+    pos, ok = sampling.choose_without_replacement(cand_ok, ms.grad_max,
+                                                  generator, scores)
+    i, j = sampling.flat_to_ij(cand_idx[pos], ms.w)
+    rays_o, rays_d = camera.rays_from_uv(i, j, c2w, ms.fx, ms.fy, ms.cx, ms.cy)
+    return (rays_o, rays_d, sampling.gather_pixels(gt_depth, i, j),
+            sampling.gather_pixels(gt_color, i, j),
+            sampling.gather_pixels(r_add, i, j), ok)
+
+
+class Mapper:
+    """Host orchestration of per-frame mapping. Owns the cloud, the
+    keyframe ring, the decoders and the mapping random streams (a torch
+    generator on the device, and a numpy one for window selection)."""
+
+    def __init__(self, cfg, decoders, n_img: int, rng: np.random.Generator,
+                 device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.decoders = decoders
+        self.n_img = n_img
+        self.rng = rng
+        cam = cfg["cam"]
+        h, w = cam["H"], cam["W"]
+        mp = cfg["mapping"]
+        pcfg = cfg["pointcloud"]
+        if mp.get("vis_inside"):
+            raise NotImplementedError(
+                "point_slam_tpu_torch does not implement mapping.vis_inside "
+                "yet")
+        self.window = mp["mapping_window_size"] * (2 if n_img > 4000 else 1)
+        self.ms = MapperStatic(
+            h=h, w=w, fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"],
+            r_max=mp["pixels"], f_max=2 * self.window + 2,
+            w_color_loss=mp["w_color_loss"], frustum_edge=mp["frustum_edge"],
+            fix_geo_decoder=mp["fix_geo_decoder"], n_add=pcfg["N_add"],
+            near_end_surface_pc=pcfg["near_end_surface"],
+            far_end_surface_pc=pcfg["far_end_surface"],
+            add_max=mp["pixels_adding"] * 3,
+            grad_max=max(mp["pixels_based_on_color_grad"], 1),
+            grad_top=min(5 * max(mp["pixels_based_on_color_grad"], 1), h * w))
+        self.rc = R.make_render_config(
+            cfg, cfg["rendering"]["sigmoid_coef_mapper"], self.device)
+        cu = cfg["cuda"]
+        self.cloud = pc.init_cloud(cu["point_capacity_init"],
+                                   cfg["model"]["c_dim"], pcfg["N_add"],
+                                   self.device)
+        self.n_points_host = 0
+        self.cell_size = (pcfg["radius_query_ratio"] * pcfg["radius_add_max"]
+                          if cfg["use_dynamic_radius"] else
+                          max(pcfg["radius_query"], pcfg["radius_add"]))
+        self.table_size = cu["grid_table_size"]
+        self.max_per_cell = cu["grid_max_per_cell"]
+        self.packed_coords = R.resolve_auto(cu.get("knn_packed_coords", "auto"),
+                                            self.device)
+        self.index = pc.build_index(self.cloud, self.cell_size,
+                                    self.table_size, self.max_per_cell,
+                                    self.packed_coords)
+        self.store = KeyframeStore(cfg, h, w, n_img, mp["keyframe_every"],
+                                   self.device)
+        self.keyframe_list: List[int] = []
+        self.dyn = cfg["use_dynamic_radius"]
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(cfg["setup_seed"]))
+        self.frame_stats: Dict[int, Dict[str, Any]] = {}
+
+    def _ensure_capacity(self, worst_new: int):
+        cap = self.cloud.packed.shape[0]
+        cap_max = self.cfg["cuda"]["point_capacity_max"]
+        grew = False
+        while self.n_points_host + worst_new > cap and cap < cap_max:
+            cap *= 2
+            self.cloud = pc.grow_cloud(self.cloud, cap, self.ms.n_add)
+            grew = True
+        if self.n_points_host + worst_new > cap:
+            raise RuntimeError("neural point cloud capacity exceeded")
+        if grew:
+            # keep the mean bucket occupancy near 8 points: an overfull
+            # bucket drops points past max_per_cell
+            while self.table_size < cap // 8:
+                self.table_size *= 2
+            self.index = pc.build_index(self.cloud, self.cell_size,
+                                        self.table_size, self.max_per_cell,
+                                        self.packed_coords)
+
+    def radius_maps(self, color_dev):
+        """(r_add, r_query, cand_idx, cand_ok) of one frame."""
+        pcfg = self.cfg["pointcloud"]
+        if not self.dyn:
+            shape = (self.ms.h, self.ms.w)
+            return (torch.full(shape, pcfg["radius_add"], device=self.device),
+                    torch.full(shape, pcfg["radius_query"], device=self.device),
+                    None, None)
+        return prepare_frame(color_dev, pcfg["radius_add_max"],
+                             pcfg["radius_add_min"], pcfg["radius_query_ratio"],
+                             pcfg["color_grad_threshold"], self.ms.grad_top)
+
+    def _overlap_scores(self, cur_c2w, gt_depth):
+        """Device overlap scores, or None when the window selection does
+        not use them (empty store, or the 'global' method)."""
+        n_kf = len(self.keyframe_list)
+        if (n_kf == 0 or self.cfg["mapping"]["keyframe_selection_method"]
+                != "overlap"):
+            return None
+        i, j = sampling.sample_pixels_uniform(0, self.ms.h, 0, self.ms.w, 200,
+                                              self.generator, self.device)
+        return overlap_scores(self.ms, self.store.est_c2w_padded(), n_kf - 1,
+                              cur_c2w, gt_depth, i, j)
+
+    def select_keyframes(self, scores: Optional[np.ndarray]) -> List[int]:
+        """Window of keyframe slots: up to window-2 picks (overlapping, or
+        global) plus the latest keyframe; the current frame rides
+        separately as the last slot."""
+        num = self.window - 2
+        n_kf = len(self.keyframe_list)
+        if n_kf == 0:
+            return []
+        if scores is None:
+            sel = list(self.rng.permutation(max(n_kf - 1, 0))[:num])
+        else:
+            qualifying = [k for k in range(n_kf - 1) if scores[k] > 0.0]
+            sel = list(self.rng.permutation(qualifying)[:num])
+        return [int(s) for s in sel] + [n_kf - 1]
+
+    def map_frame(self, idx: int, gt_color, gt_depth, gt_c2w, cur_c2w,
+                  radius=None) -> Dict[str, Any]:
+        """Map one frame. ``gt_color``/``gt_depth`` may be numpy or device
+        tensors; ``radius``: optional precomputed radius_maps(color)."""
+        cfg = self.cfg
+        mp = cfg["mapping"]
+        init = idx == 0
+        fga = mp.get("fix_geo_decoder_after") or 0
+        if fga and not self.ms.fix_geo_decoder and idx >= fga:
+            self.ms = self.ms._replace(fix_geo_decoder=True)
+
+        dev = self.device
+        color = torch.as_tensor(gt_color, device=dev)
+        depth = torch.as_tensor(gt_depth, device=dev)
+        cur_c2w_dev = torch.as_tensor(np.asarray(cur_c2w, np.float32),
+                                      device=dev)
+        r_add, r_query, cand_idx, cand_ok = (
+            radius if radius is not None else self.radius_maps(color))
+        if cand_ok is not None:
+            cand_ok = cand_ok & (depth.reshape(-1)[cand_idx] > 0)
+
+        # ---- densification
+        if init:
+            d_host = depth.cpu().numpy()
+            med = (float(np.median(d_host[d_host > 0])) if (d_host > 0).any()
+                   else 2.5)
+            add_n = int(np.clip(mp["pixels_adding"] * (med / 2.5) ** 2,
+                                mp["pixels_adding"], mp["pixels_adding"] * 3))
+        else:
+            add_n = mp["pixels_adding"]
+        ms = self.ms
+        self._ensure_capacity((ms.add_max + ms.grad_max) * ms.n_add)
+        fix = cfg["pointcloud"]["fix_interval_when_add_along_ray"]
+        n_acc = []
+
+        def densify(batch):
+            o, d, dep, col, ra, valid = batch
+            n_before = self.cloud.n_points
+            self.cloud, n = pc.add_points(
+                self.cloud, self.index, o, d, dep, col, valid, ra,
+                ms.near_end_surface_pc, ms.far_end_surface_pc, n_add=ms.n_add,
+                fix_interval=fix, generator=self.generator)
+            self.index = pc.insert_index(self.cloud, self.index, n_before,
+                                         m=o.shape[0] * ms.n_add)
+            n_acc.append(n)
+
+        densify(sample_add_rays(ms, cur_c2w_dev, color, depth, r_add, add_n,
+                                self.generator))
+        if mp["pixels_based_on_color_grad"] > 0 and cand_idx is not None:
+            # drawn after the first insert, so its dedup sees those points
+            densify(sample_grad_rays(ms, cur_c2w_dev, color, depth, r_add,
+                                     cand_idx, cand_ok, self.generator))
+
+        # ---- frustum gradient mask
+        cap = self.cloud.packed.shape[0]
+        if mp["frustum_feature_selection"]:
+            frustum = pc.frustum_mask(
+                self.cloud.pos, self.cloud.n_points,
+                torch.linalg.inv(cur_c2w_dev), depth, ms.fx, ms.fy, ms.cx,
+                ms.cy, ms.frustum_edge)
+        else:
+            frustum = torch.arange(cap, device=dev) < self.cloud.n_points
+
+        # ---- one host fetch: densify counters + overlap scores
+        scores_dev = self._overlap_scores(cur_c2w_dev, depth)
+        fetch = [torch.stack(n_acc).sum().float()[None],
+                 self.cloud.n_points.float()[None]]
+        if scores_dev is not None:
+            fetch.append(scores_dev.float())
+        host = torch.cat(fetch).cpu().numpy()
+        n_acc_total = int(host[0])
+        self.n_points_host = int(host[1])
+        scores = host[2:] if scores_dev is not None else None
+
+        # ---- iteration budget
+        if init:
+            n_iters, geo_bound = mp["iters_first"], mp["geo_iter_first"]
+        else:
+            n_iters = int(np.clip(int(mp["iters"] * n_acc_total / 300),
+                                  int(mp["min_iter_ratio"] * mp["iters"]),
+                                  2 * mp["iters"]))
+            geo_bound = int(n_iters * mp["geo_iter_ratio"])
+
+        # ---- LR schedule
+        sched = mp["init" if init else "stage"]
+        lr_geo = [sched["geometry"][k] for k in
+                  ("decoders_lr", "geometry_lr", "color_lr")]
+        lr_col = [sched["color"][k] for k in
+                  ("decoders_lr", "geometry_lr", "color_lr")]
+        fix_color = 0.0 if mp["fix_color_decoder"] else 1.0
+
+        # ---- window + optimise
+        sel = self.select_keyframes(scores)
+        n_frames = len(sel) + 1
+        w_color, w_depth, w_rq, w_c2w = self.store.gather_window(sel, ms.f_max)
+        k = len(sel)
+        w_color[k], w_depth[k], w_rq[k], w_c2w[k] = (color, depth, r_query,
+                                                     cur_c2w_dev)
+        packed, stats_dev = map_optimize(
+            ms, self.rc, self.decoders, self.cloud.packed, self.index,
+            (w_color, w_depth, w_rq, w_c2w), n_frames, ms.r_max // n_frames,
+            frustum, lr_geo, lr_col, fix_color, geo_bound, n_iters,
+            generator=self.generator)
+        self.cloud = self.cloud._replace(packed=packed)
+        stats = stats_dev.cpu().numpy()
+
+        # ---- keyframe bookkeeping
+        if ((idx % mp["keyframe_every"] == 0 or idx == self.n_img - 2)
+                and idx not in self.keyframe_list
+                and np.isfinite(gt_c2w).all()):
+            self.store.append(color, depth, cur_c2w)
+            self.keyframe_list.append(idx)
+
+        out = {"geo_loss": float(stats[0]), "color_loss": float(stats[1]),
+               "n_mask": float(stats[2]), "n_added": n_acc_total,
+               "n_iters": n_iters, "n_points": self.n_points_host,
+               "cur_c2w": np.asarray(cur_c2w, np.float32)}
+        self.frame_stats[idx] = out
+        return out

@@ -1,0 +1,200 @@
+"""PointSLAM orchestrator: the lock-step tracking/mapping schedule.
+
+The port of ``point_slam_tpu.slam``: frame 0 is mapped with its GT pose;
+every later frame is tracked (frame 1 takes its GT pose), and every
+``every_frame``-th frame and the last one are mapped again. A prefetch
+thread reads the next frames in wire form, copies them to the device and
+computes their radius maps while the current frame runs.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from point_slam_tpu_torch.config import check_supported
+from point_slam_tpu_torch.datasets import get_dataset
+from point_slam_tpu_torch.mapper import Mapper
+from point_slam_tpu_torch.models import decoders as D
+from point_slam_tpu_torch.tracker import Tracker
+
+
+def update_cam(cfg) -> None:
+    """Apply crop_size / crop_edge to the intrinsics in place."""
+    cam = cfg["cam"]
+    if "crop_size" in cam and cam["crop_size"] is not None:
+        ch, cw = cam["crop_size"]
+        sx, sy = cw / cam["W"], ch / cam["H"]
+        cam["fx"] *= sx
+        cam["fy"] *= sy
+        cam["cx"] *= sx
+        cam["cy"] *= sy
+        cam["W"], cam["H"] = cw, ch
+    e = cam.get("crop_edge") or 0
+    if e > 0:
+        cam["H"] -= 2 * e
+        cam["W"] -= 2 * e
+        cam["cx"] -= e
+        cam["cy"] -= e
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _repo_path(path: str) -> str:
+    """Resolve a config-relative artifact path against the repository root
+    when it does not exist relative to the working directory."""
+    if path and not os.path.isabs(path) and not os.path.exists(path):
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        if os.path.exists(os.path.join(root, path)):
+            return os.path.join(root, path)
+    return path
+
+
+class PointSLAM:
+    def __init__(self, cfg, input_folder: Optional[str] = None,
+                 output: Optional[str] = None, device=None):
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        update_cam(cfg)
+        if output:
+            cfg["data"]["output"] = output
+        self.output = cfg["data"]["output"]
+        os.makedirs(self.output, exist_ok=True)
+
+        self.dataset = get_dataset(cfg, input_folder)
+        self.n_img = len(self.dataset)
+        self.verbose = cfg.get("verbose", True)
+
+        decoders = D.init_decoders(cfg, cfg["setup_seed"], self.device)
+        pretrained = _repo_path(
+            cfg.get("pretrained_decoders", {}).get("middle_fine", ""))
+        D.load_pretrained_geo(decoders, pretrained)
+        if cfg["mapping"].get("fix_geo_decoder") and not (
+                pretrained and os.path.exists(pretrained)):
+            # the frozen geometry decoder is a PRETRAINED one; a random one
+            # is trained instead
+            cfg["mapping"]["fix_geo_decoder"] = False
+            if self.verbose:
+                print("[init] no pretrained geo decoder found -> training it")
+
+        rng = np.random.default_rng(cfg["setup_seed"])
+        self.mapper = Mapper(cfg, decoders, self.n_img, rng, self.device)
+        self.tracker = Tracker(cfg, self.device)
+        self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
+        self.gt_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
+        # wall-clock buckets (disjoint; sum to wall_active): track/map the
+        # two optimisation phases, wait = blocked on the prefetch thread,
+        # io = direct dataset reads on the main thread (frame 0), other =
+        # the per-frame remainder
+        self.timing: Dict[str, float] = {
+            "track": 0.0, "map": 0.0, "io": 0.0, "wait": 0.0, "other": 0.0}
+        # per-frame wall times (seconds, ending in a device sync)
+        self.frame_times: Dict[int, Dict[str, float]] = {}
+
+    def _frame(self, idx):
+        t0 = time.perf_counter()
+        _, color, depth, c2w = self.dataset[idx]
+        self.timing["io"] += time.perf_counter() - t0
+        return color, depth, c2w
+
+    def run(self, stop: Optional[int] = None) -> Dict[str, Any]:
+        from point_slam_tpu_torch.common import image as image_ops
+        from point_slam_tpu_torch.utils.prefetch import FramePrefetcher
+
+        t_run0 = time.perf_counter()
+        cfg = self.cfg
+        n = self.n_img if stop is None else min(stop + 1, self.n_img)
+        check_supported(cfg, will_refine=n == self.n_img)
+        every = cfg["mapping"]["every_frame"]
+        lazy = cfg["mapping"]["lazy_start"] or 0
+        tm = self.timing
+
+        color, depth, gt_c2w = self._frame(0)
+        self.estimate_c2w_list[0] = gt_c2w
+        self.gt_c2w_list[0] = gt_c2w
+        t0 = time.perf_counter()
+        st = self.mapper.map_frame(0, color, depth, gt_c2w, gt_c2w)
+        t_map = time.perf_counter() - t0
+        tm["map"] += t_map
+        self.frame_times[0] = {"track": 0.0, "map": t_map}
+        if self.verbose:
+            print(f"[map] frame 0: +{st['n_added']} locations, "
+                  f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}",
+                  flush=True)
+
+        inv_scale = float(self.dataset.depth_inv_scale)
+        dev = self.device
+
+        def _stage(item):
+            # device copy at wire width, decode and radius maps in the
+            # prefetch thread, overlapping the current frame (one CUDA
+            # stream orders them before the main thread's later work)
+            i, packed, c2w = item
+            color_d, depth_d = image_ops.decode_wire_frame(
+                torch.from_numpy(packed).to(dev, non_blocking=True),
+                inv_scale)
+            return (i, color_d, depth_d, self.mapper.radius_maps(color_d),
+                    c2w)
+
+        prefetcher = FramePrefetcher(self.dataset, depth=4, start=1, stop=n,
+                                     stage=_stage, fetch=self.dataset.wire)
+        pf_iter = iter(prefetcher)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                idx, color, depth, radius, gt_c2w = next(pf_iter)
+            except StopIteration:
+                break
+            tm["wait"] += time.perf_counter() - t0
+            t_frame0 = time.perf_counter()
+            acc0 = tm["track"] + tm["map"]
+            self.gt_c2w_list[idx] = gt_c2w
+            ef = 1 if (lazy and idx <= lazy) else every
+
+            t0 = time.perf_counter()
+            res = self.tracker.track_frame(idx, color, depth, gt_c2w,
+                                           self.estimate_c2w_list,
+                                           self.mapper, radius[1])
+            t_track = time.perf_counter() - t0
+            tm["track"] += t_track
+            self.estimate_c2w_list[idx] = res["c2w"]
+            if res.get("tracked") and self.verbose:
+                print(f"[track] frame {idx}: loss {res['first_loss']:.2f}->"
+                      f"{res['best_loss']:.2f}", flush=True)
+
+            t_map = 0.0
+            if idx % ef == 0 or idx == n - 1:
+                t0 = time.perf_counter()
+                st = self.mapper.map_frame(idx, color, depth, gt_c2w,
+                                           self.estimate_c2w_list[idx],
+                                           radius=radius)
+                t_map = time.perf_counter() - t0
+                tm["map"] += t_map
+                if self.verbose:
+                    print(f"[map] frame {idx}: +{st['n_added']} locations, "
+                          f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}, "
+                          f"col {st['color_loss']:.3f}, "
+                          f"pts {st['n_points']}", flush=True)
+            self.frame_times[idx] = {"track": t_track, "map": t_map}
+            tm["other"] += (time.perf_counter() - t_frame0
+                            - (tm["track"] + tm["map"] - acc0))
+
+        tm["prefetch_fetch"] = prefetcher.time_fetch
+        tm["prefetch_stage"] = prefetcher.time_stage
+        tm["wall_active"] = time.perf_counter() - t_run0
+        return {
+            "n_frames": n,
+            "n_points": self.mapper.n_points_host,
+            "keyframes": list(self.mapper.keyframe_list),
+            "timing": dict(self.timing),
+            "frame_times": dict(self.frame_times),
+            "estimate_c2w_list": self.estimate_c2w_list[:n],
+            "gt_c2w_list": self.gt_c2w_list[:n],
+        }

@@ -1,0 +1,201 @@
+"""Tracker: per-frame camera pose optimisation.
+
+The port of ``point_slam_tpu.tracker``: a Python loop over autograd in
+place of the JAX while_loop. Each iteration samples pixels, renders them
+with neighbour distances differentiable in the pose, takes the robust depth
+(and colour) L1 loss and steps Adam on the (w,x,y,z) quaternion and the
+translation. The loop keeps the minimum-loss candidate on the device (no
+host sync per iteration): with separate_LR it stores the pre-step camera,
+otherwise the post-step one, and the quaternion gets 0.2x the learning
+rate. The motion model and the quaternion hemisphere alignment against the
+GT pose run on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from point_slam_tpu_torch import renderer as R
+from point_slam_tpu_torch.common import camera, image, sampling
+from point_slam_tpu_torch.ops import adam
+
+
+class TrackerStatic(NamedTuple):
+    h: int
+    w: int
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    pixels: int
+    ignore_edge_w: int
+    ignore_edge_h: int
+    handle_dynamic: bool
+    depth_limit: bool
+    use_color: bool
+    w_color_loss: float
+    separate_lr: bool
+
+
+def sample_pixels(ts: TrackerStatic, generator: torch.Generator, device):
+    """One iteration's pixel draw (i columns, j rows), edge-cropped."""
+    return sampling.sample_pixels_uniform(
+        ts.ignore_edge_h, ts.h - ts.ignore_edge_h, ts.ignore_edge_w,
+        ts.w - ts.ignore_edge_w, ts.pixels, generator, device)
+
+
+def tracking_loss(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
+                  gt_color, gt_depth, r_query_map, cam: torch.Tensor,
+                  i: torch.Tensor, j: torch.Tensor, fill: torch.Tensor):
+    """Robust tracking loss of the 7-vector camera ``cam`` at pixels (i, j)
+    with the (2, 32) random-fill vectors ``fill``. Returns
+    (loss, geo_loss, color_loss, n_mask)."""
+    c2w = camera.pose_matrix_from_tensor(cam)
+    dep = sampling.gather_pixels(gt_depth, i, j)
+    col = sampling.gather_pixels(gt_color, i, j)
+    rq = sampling.gather_pixels(r_query_map, i, j)
+    valid = dep > 0
+    if ts.depth_limit:
+        valid &= dep < 5.0
+    rays_o, rays_d = camera.rays_from_uv(i, j, c2w, ts.fx, ts.fy, ts.cx, ts.cy)
+    med = image.masked_median(dep, valid)
+    mx = image.masked_max(dep, valid)
+    valid &= dep <= torch.minimum(10.0 * med, 1.2 * mx)
+
+    depth, uncertainty, color, _ = R.render_rays(
+        dec, packed, index, rays_o, rays_d, dep, rq, valid, rc,
+        stage_color=True, is_tracker=True, fill=fill)
+    uncertainty = uncertainty.detach()
+    nan_ok = ~(torch.isnan(depth) | torch.isnan(uncertainty))
+    tmp = torch.abs(dep - depth) / torch.sqrt(uncertainty + 1e-10)
+    if ts.handle_dynamic:
+        thresh_ok = tmp < 10.0 * image.masked_mean(tmp, valid & nan_ok)
+    else:
+        err = torch.abs(dep - depth)
+        thresh_ok = err < 10.0 * image.masked_median(err, valid & nan_ok)
+    mask = thresh_ok & (dep > 0) & nan_ok & valid
+    geo_loss = torch.sum(torch.where(mask, torch.clamp(tmp, 0.0, 1e3), 0.0))
+    color_loss = torch.sum(torch.where(mask[:, None], torch.abs(col - color),
+                                       0.0))
+    loss = geo_loss + ts.w_color_loss * color_loss if ts.use_color else geo_loss
+    return loss, geo_loss, color_loss, mask.sum()
+
+
+def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
+                   gt_color, gt_depth, r_query_map, cam_init: torch.Tensor,
+                   lr: float, n_iters: int,
+                   generator: Optional[torch.Generator] = None, draws=None):
+    """Optimise the camera for one frame.
+
+    ``draws``: optional per-iteration list of (i, j, fill); drawn from
+    ``generator`` otherwise. Returns (best_cam (7,), final_cam (7,),
+    first_loss, best_loss) as device tensors.
+    """
+    dev = cam_init.device
+    quad = cam_init[:4].clone().requires_grad_(True)
+    trans = cam_init[4:].clone().requires_grad_(True)
+    state = adam.init_state([quad, trans])
+    best_loss = torch.tensor(1e20, device=dev)
+    best_cam = cam_init.clone()
+    first_loss = torch.zeros((), device=dev)
+    lr_q = lr * 0.2 if ts.separate_lr else lr
+    for it in range(n_iters):
+        if draws is not None:
+            i, j, fill = draws[it]
+        else:
+            i, j = sample_pixels(ts, generator, dev)
+            fill = R.draw_fill(generator, dev)
+        cam = torch.cat([quad, trans])
+        loss = tracking_loss(ts, rc, dec, packed, index, gt_color, gt_depth,
+                             r_query_map, cam, i, j, fill)[0]
+        g_q, g_t = torch.autograd.grad(loss, [quad, trans])
+        with torch.no_grad():
+            cam_vec = cam.detach()
+            (new_q, new_t), state = adam.update(
+                [quad.detach(), trans.detach()], [g_q, g_t], state,
+                float(it + 1), [lr_q, lr])
+            stored = cam_vec if ts.separate_lr else torch.cat([new_q, new_t])
+            better = loss.detach() < best_loss
+            best_loss = torch.where(better, loss.detach(), best_loss)
+            best_cam = torch.where(better, stored, best_cam)
+            if it == 0:
+                first_loss = loss.detach()
+        quad = new_q.requires_grad_(True)
+        trans = new_t.requires_grad_(True)
+    final_cam = torch.cat([quad, trans]).detach()
+    return best_cam, final_cam, first_loss, best_loss
+
+
+class Tracker:
+    """Host orchestration: motion model, quaternion init, per-frame
+    optimisation. Owns the tracking random stream."""
+
+    def __init__(self, cfg, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        cam = cfg["cam"]
+        tr = cfg["tracking"]
+        if tr.get("vis_inside"):
+            raise NotImplementedError(
+                "point_slam_tpu_torch does not implement tracking.vis_inside"
+                " yet")
+        if tr.get("sample_with_color_grad"):
+            raise NotImplementedError(
+                "point_slam_tpu_torch does not implement tracking."
+                "sample_with_color_grad yet")
+        self.ts = TrackerStatic(
+            h=cam["H"], w=cam["W"], fx=cam["fx"], fy=cam["fy"],
+            cx=cam["cx"], cy=cam["cy"], pixels=tr["pixels"],
+            ignore_edge_w=tr["ignore_edge_W"], ignore_edge_h=tr["ignore_edge_H"],
+            handle_dynamic=tr["handle_dynamic"], depth_limit=tr["depth_limit"],
+            use_color=tr["use_color_in_tracking"],
+            w_color_loss=tr["w_color_loss"], separate_lr=tr["separate_LR"])
+        self.rc = R.make_render_config(
+            cfg, cfg["rendering"]["sigmoid_coef_tracker"], self.device)
+        self.lr = tr["lr"]
+        self.iters = tr["iters"]
+        self.gt_camera = tr["gt_camera"]
+        self.const_speed = tr["const_speed_assumption"]
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(cfg["setup_seed"]) + 1)
+
+    def initial_pose(self, idx: int, estimate_c2w_list: np.ndarray,
+                     gt_c2w: np.ndarray) -> np.ndarray:
+        """Constant-speed motion model + hemisphere-aligned quaternion."""
+        pre_c2w = estimate_c2w_list[idx - 1].astype(np.float32)
+        if self.const_speed and idx >= 2:
+            delta = pre_c2w @ np.linalg.inv(
+                estimate_c2w_list[idx - 2].astype(np.float32))
+            est = delta @ pre_c2w
+        else:
+            est = pre_c2w
+        cam = camera.tensor_from_pose_matrix(est)
+        gt_cam = camera.tensor_from_pose_matrix(gt_c2w.astype(np.float32))
+        if np.dot(cam[:4], gt_cam[:4]) < 0:
+            cam = cam.copy()
+            cam[:4] *= -1
+        return cam
+
+    def track_frame(self, idx: int, gt_color, gt_depth, gt_c2w,
+                    estimate_c2w_list, mapper, r_query_map) -> Dict[str, Any]:
+        """Track one frame against the current map; frames 0 and 1 take the
+        GT pose. Returns a dict with c2w (4,4) numpy."""
+        if idx <= 1 or self.gt_camera:
+            return {"c2w": np.asarray(gt_c2w, np.float32), "tracked": False}
+        cam_init = torch.as_tensor(
+            self.initial_pose(idx, estimate_c2w_list, gt_c2w),
+            device=self.device)
+        best_cam, _, first_loss, best_loss = track_optimize(
+            self.ts, self.rc, mapper.decoders, mapper.cloud.packed,
+            mapper.index, gt_color, gt_depth, r_query_map, cam_init,
+            self.lr, self.iters, generator=self.generator)
+        # one host fetch per frame
+        vals = torch.cat([camera.pose_matrix_from_tensor(best_cam).reshape(-1),
+                          first_loss[None], best_loss[None]]).cpu().numpy()
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, :4] = vals[:12].reshape(3, 4)
+        return {"c2w": c2w, "tracked": True,
+                "first_loss": float(vals[12]), "best_loss": float(vals[13])}

@@ -1,0 +1,161 @@
+"""Port parity, decoders: the JAX decoder tree (with the pretrained geometry
+MLP from pretrained/middle_fine.npz) carried into the port's nn.Modules by
+interop.decoders_from_numpy, then both evaluated on the same inputs.
+
+Tolerance: the Fourier projections 2*pi*x@B reach ~1e3 rad (|B| ~ 25-32,
+room-scale x), where one f32 ulp is ~1e-4 rad; the two libraries sum the
+3-term products in different orders, so sin/cos agree to ~1e-4 and the MLP
+outputs are compared at 2e-4 (absolute and relative). Weights and the
+interpolation weights (no phases) are compared exactly or at 1e-6."""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from point_slam_tpu.models import decoders as JD
+from point_slam_tpu_torch import interop
+from point_slam_tpu_torch.models import decoders as TD
+
+from torch_parity import PRETRAINED, jax_decoders, n, t, tiny_cfgs, to_numpy
+
+PHASE_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture(scope="module")
+def both():
+    jcfg, tcfg = tiny_cfgs()
+    params = jax_decoders(jcfg)
+    return params, interop.decoders_from_numpy(to_numpy(params), tcfg)
+
+
+def _inputs(seed, n_pts=256, k=8):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-2.5, 2.5, (n_pts, 3)).astype(np.float32)
+    c = rng.normal(0, 0.1, (n_pts, 32)).astype(np.float32)
+    nbp = (p[:, None, :] + rng.normal(0, 0.05, (n_pts, k, 3))).astype(
+        np.float32)
+    nbf = rng.normal(0, 0.1, (n_pts, k, 32)).astype(np.float32)
+    return p, c, nbp, nbf
+
+
+def test_decoder_tree_names_and_orientation(both):
+    """JAX _linear is x @ w + b: each nn.Linear holds w.T."""
+    params, dec = both
+    for name, mod in (("geo", dec.geo), ("col", dec.col)):
+        for i, lin in enumerate(mod.pts_linears):
+            np.testing.assert_array_equal(
+                n(lin.weight), np.asarray(params[name]["pts_linears"][i]["w"]).T)
+        for i, lin in enumerate(mod.fc_c):
+            np.testing.assert_array_equal(
+                n(lin.bias), np.asarray(params[name]["fc_c"][i]["b"]))
+        np.testing.assert_array_equal(n(mod.embedder_B),
+                                      np.asarray(params[name]["embedder_B"]))
+    np.testing.assert_array_equal(
+        n(dec.col.mlp_col_neighbor["l1"].weight),
+        np.asarray(params["col"]["mlp_col_neighbor"]["l1"]["w"]).T)
+    # the colour embedding is fixed; the geometry and relative ones learn
+    assert "embedder_B" in dict(dec.col.named_buffers())
+    assert dec.geo.embedder_B.requires_grad
+    assert dec.col.embedder_rel_B.requires_grad
+
+
+def test_pretrained_geometry_decoder_loads_like_jax():
+    jcfg, tcfg = tiny_cfgs()
+    dec = TD.load_pretrained_geo(TD.init_decoders(tcfg, 0), PRETRAINED)
+    params = jax_decoders(jcfg)
+    data = np.load(PRETRAINED)
+    for i in range(TD.N_BLOCKS):
+        np.testing.assert_array_equal(n(dec.geo.pts_linears[i].weight),
+                                      data[f"pts_linears.{i}.weight"])
+        np.testing.assert_array_equal(
+            n(dec.geo.fc_c[i].weight),
+            np.asarray(params["geo"]["fc_c"][i]["w"]).T)
+    np.testing.assert_array_equal(n(dec.geo.embedder_B),
+                                  np.asarray(params["geo"]["embedder_B"]))
+
+
+def test_init_shapes_match_the_jax_tree():
+    jcfg, tcfg = tiny_cfgs()
+    params = JD.init_decoders(jax.random.key(0), jcfg)
+    dec = TD.init_decoders(tcfg, 0)
+    for name, mod in (("geo", dec.geo), ("col", dec.col)):
+        for i, lin in enumerate(mod.pts_linears):
+            assert tuple(lin.weight.shape) == \
+                params[name]["pts_linears"][i]["w"].shape[::-1]
+        assert tuple(mod.output_linear.weight.shape) == \
+            params[name]["output_linear"]["w"].shape[::-1]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_geo_decoder_matches_jax(both, seed):
+    params, dec = both
+    p, c, _, _ = _inputs(seed)
+    got = dec.geo(t(p), t(c))
+    want = JD.geo_decoder_apply(params["geo"], jnp.asarray(p), jnp.asarray(c))
+    np.testing.assert_allclose(n(got), n(want), **PHASE_TOL)
+
+
+@pytest.mark.parametrize("sigmoid", [True, False])
+def test_color_decoder_matches_jax(both, sigmoid):
+    params, dec = both
+    p, c, _, _ = _inputs(2)
+    got = dec.col(t(p), t(c), apply_sigmoid=sigmoid)
+    want = JD.col_decoder_apply(params["col"], jnp.asarray(p), jnp.asarray(c),
+                                apply_sigmoid=sigmoid)
+    np.testing.assert_allclose(n(got), n(want), **PHASE_TOL)
+
+
+def test_neighbor_encoder_f_theta_matches_jax(both):
+    params, dec = both
+    p, _, nbp, nbf = _inputs(3)
+    got = dec.col.encode_neighbor_feats(t(nbp), t(p), t(nbf))
+    want = JD.encode_neighbor_feats(params["col"], jnp.asarray(nbp),
+                                    jnp.asarray(p), jnp.asarray(nbf))
+    np.testing.assert_allclose(n(got), n(want), **PHASE_TOL)
+
+
+def test_softplus_matches_jax():
+    x = np.linspace(-0.5, 0.5, 2001).astype(np.float32)
+    np.testing.assert_allclose(n(TD.softplus100(t(x))),
+                               n(JD.softplus100(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("weighting", ["distance", "expo"])
+def test_interpolation_weights_match_jax(weighting):
+    rng = np.random.default_rng(4)
+    d = rng.uniform(0, 0.05, (100, 8)).astype(np.float32)
+    valid = rng.uniform(size=(100, 8)) < 0.8
+    d[~valid] = np.inf
+    r = rng.uniform(0.05, 0.2, 100).astype(np.float32)
+    np.testing.assert_allclose(
+        n(TD.interpolation_weights(t(d), t(valid), t(r), weighting)),
+        n(JD.interpolation_weights(jnp.asarray(d), jnp.asarray(valid),
+                                   jnp.asarray(r), weighting)),
+        rtol=1e-6, atol=1e-7)
+
+
+def test_random_fill_uses_one_shared_vector():
+    c = torch.randn(10, 32)
+    has = torch.tensor([True, False] * 5)
+    rnd = 0.01 * torch.randn(32)
+    out = TD.random_fill_features(c, has, rnd)
+    assert torch.equal(out[has], c[has])
+    assert torch.equal(out[~has], rnd.expand(5, 32))
+    jout = JD.random_fill_features(jax.random.key(0), jnp.asarray(n(c)),
+                                   jnp.asarray(n(has)), 32)
+    # JAX likewise writes one vector into every masked row
+    assert np.unique(np.asarray(jout)[~n(has)], axis=0).shape[0] == 1
+
+
+def test_out_of_slice_options_raise():
+    _, tcfg = tiny_cfgs()
+    tcfg["model"]["encode_exposure"] = True
+    with pytest.raises(NotImplementedError, match="encode_exposure"):
+        TD.init_decoders(tcfg, 0)
+    tcfg["model"]["encode_exposure"] = False
+    tcfg["model"]["use_view_direction"] = True
+    with pytest.raises(NotImplementedError, match="use_view_direction"):
+        TD.init_decoders(tcfg, 0)
