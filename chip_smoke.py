@@ -7,12 +7,17 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository; exits
 non-zero with no result line otherwise. In one pass it:
 
 1. prints the card (nvidia-smi name and power limit) and builds the CUDA
-   kernels from ``point_slam_tpu_torch/ops/csrc`` (nvcc, sm_90a);
-2. phase A: builds the port's cell tables from the synthetic room's frame 0
-   at bench.py's settings (table 2^16, C=64, P=27) and holds each ray top-k
-   kernel against its plain PyTorch version at the main path's shapes
-   (R=5000 mapping rays and R=1500 tracking rays, ns=5, k=8): keys and ids
-   must be EQUAL; prints the median CUDA-event times of both;
+   kernels from ``point_slam_tpu_torch/ops/csrc`` (one nvcc per source, in
+   parallel, sm_90a);
+2. phase A: builds the port's cell tables (packed, f32 planes, fused) from
+   the synthetic room's frame 0 at bench.py's settings (table 2^16, C=64,
+   P=27) and holds each ray top-k kernel (K1, K2, K3) against its plain
+   PyTorch version at the main path's shapes (R=5000 mapping rays and
+   R=1500 tracking rays, ns=5, k=8): keys and ids must be EQUAL (K3's ids
+   as bit patterns); then the row-Adam kernel (K4) against its plain
+   version on the (2^17, 72) buffer with the frame's frustum mask: p, m, v
+   EQUAL. Prints the median CUDA-event times of each kernel and its plain
+   version, and the least time the card could take (the bound);
 3. phase B: runs the port's PointSLAM on configs/Synthetic/room.yaml with
    bench.py's overrides (680x1200; tracking 1500 rays x 40 iterations;
    mapping 5000 rays x 300 iterations every 5th frame; 6000 + 1000
@@ -22,7 +27,16 @@ non-zero with no result line otherwise. In one pass it:
    below 2 cm and the cloud grew from map 0 to map 5; then a short run of
    frames 0-2 with the f32-plane cell table, which goes through the planes
    kernel;
-4. prints one JSON line of the kernels, the card again, and last the line
+4. phase C: runs configs/Synthetic/room_sensor.yaml (depth holes with
+   near-cloud sampling, exposure latents, bundle adjustment, colour-gradient
+   tracking pixels, colour refinement at the last frame) at the same widths
+   over the fused cell table with the fused row-Adam, frames 0-12 with
+   every_frame 2 and keyframe_every 2 (BA from frame 10, frame 12 refined),
+   and checks that K3 ran in tracking and mapping, K4 once per mapping
+   iteration, depth-free pixels were present, BA moved a keyframe pose, the
+   refinement ran 5 windows, poses are finite and ATE without alignment is
+   below 2 cm;
+5. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -39,6 +53,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1219
 ITERS_FIRST = 1500          # bench.py's first-frame mapping iterations
 REPEATS = 20                # timed launches per measurement (after warm-up)
+RAY_BATCHES = (5000, 1500)  # mapping and tracking rays a render call
+# phase C's depth cut (the configuration's own: iters_first 1500, iters 300)
+SENSOR_ITERS_FIRST = 300
+SENSOR_ITERS = 100
+SENSOR_FRAMES = 13
+
+# The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
+# and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
+# its bytes over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+KEY_FLOPS = 8               # a candidate-sample key: 3 sub, 3 mul, 2 add
+ADAM_FLOPS = 15             # one row-Adam element (row_adam.cu)
 
 
 def card_line() -> str:
@@ -48,10 +75,10 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def bench_config(n_frames: int):
-    """configs/Synthetic/room.yaml with bench.py's overrides."""
+def bench_config(n_frames: int, scene: str = "room.yaml"):
+    """configs/Synthetic/<scene> with bench.py's overrides."""
     from point_slam_tpu_torch.config import load_config
-    cfg = load_config(os.path.join(HERE, "configs", "Synthetic", "room.yaml"),
+    cfg = load_config(os.path.join(HERE, "configs", "Synthetic", scene),
                       os.path.join(HERE, "configs", "point_slam.yaml"))
     cfg["synthetic"].update({"n_frames": n_frames, "angular_step": 0.01})
     cfg["cam"].update({"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0,
@@ -73,6 +100,34 @@ def bench_config(n_frames: int):
     return cfg
 
 
+def sensor_config():
+    """configs/Synthetic/room_sensor.yaml at bench.py's widths, over the
+    fused cell table with the fused row-Adam; its own window (10), exposure,
+    BA, depth dropout (0.10), near-cloud sampling, colour-gradient tracking
+    and colour refinement; every_frame 2, keyframe_every 2, depth cut."""
+    from point_slam_tpu_torch.config import load_config
+    own = load_config(os.path.join(HERE, "configs", "Synthetic",
+                                   "room_sensor.yaml"),
+                      os.path.join(HERE, "configs", "point_slam.yaml"))
+    cfg = bench_config(SENSOR_FRAMES, "room_sensor.yaml")
+    cfg["mapping"].update({
+        "mapping_window_size": own["mapping"]["mapping_window_size"],
+        "every_frame": 2, "keyframe_every": 2,
+        "iters_first": SENSOR_ITERS_FIRST, "iters": SENSOR_ITERS,
+        "color_refine": own["mapping"]["color_refine"]})
+    cfg["rendering"]["sample_near_pcl"] = own["rendering"]["sample_near_pcl"]
+    cfg["cuda"].update({"knn_packed_coords": "fused", "fused_adam": True})
+    cfg["data"]["output"] = os.path.join(HERE, "output", "chip_smoke_sensor")
+    return cfg
+
+
+def bound(n_bytes: float, n_flops: float):
+    """(least time in ms, what sets it) on the card's published peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def cuda_ms(fn) -> float:
     """Median CUDA-event time of fn() in ms, after warm-up."""
     import torch
@@ -90,16 +145,33 @@ def cuda_ms(fn) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def topk_bound(name, probes, c, ns, k):
+    """The least time of one ray top-k launch on these inputs, from the
+    bytes it needs (the distinct probed rows: coordinates, or the whole
+    2C-wide row of the fused layout; the winners' ids; the probes, queries
+    and outputs) and its operations (a key per candidate and sample)."""
+    import torch
+    r, p = probes.shape
+    rows = torch.unique(probes).numel()
+    row_bytes = {"ray_topk_packed": c * 4, "ray_topk_planes": 3 * c * 4,
+                 "ray_topk_fused": 2 * c * 4}[name]
+    ids = 0 if name == "ray_topk_fused" else r * ns * k * 4
+    n_bytes = (rows * row_bytes + ids + r * p * 4 + r * ns * 3 * 4
+               + r * ns * k * 8)
+    return bound(n_bytes, r * ns * p * c * KEY_FLOPS), rows
+
+
 def phase_a(dev):
     """Kernel against plain on the card at the main path's shapes."""
     import numpy as np
     import torch
+    from point_slam_tpu_torch import pointcloud as pc
     from point_slam_tpu_torch import renderer as R
     from point_slam_tpu_torch.common import camera, sampling
     from point_slam_tpu_torch.mapper import Mapper
     from point_slam_tpu_torch.models import decoders as D
     from point_slam_tpu_torch.datasets import get_dataset
-    from point_slam_tpu_torch.ops import knn
+    from point_slam_tpu_torch.ops import adam, knn
 
     cfg = bench_config(7)
     cfg["mapping"]["iters_first"] = 0        # densify frame 0 only
@@ -109,10 +181,11 @@ def phase_a(dev):
                     np.random.default_rng(SEED), dev)
     mapper.map_frame(0, color, depth, c2w, c2w)
     cloud, n = mapper.cloud, mapper.n_points_host
+    args = (cloud.pos, cloud.n_points, mapper.cell_size, mapper.table_size,
+            mapper.max_per_cell)
     indexes = {"ray_topk_packed": mapper.index,
-               "ray_topk_planes": knn.build_grid_index(
-                   cloud.pos, cloud.n_points, mapper.cell_size,
-                   mapper.table_size, mapper.max_per_cell)}
+               "ray_topk_planes": knn.build_grid_index(*args),
+               "ray_topk_fused": knn.build_fused_grid_index(*args)}
     print(f"[A] frame-0 cloud: {n} points, table {mapper.table_size} x "
           f"{mapper.max_per_cell}", flush=True)
 
@@ -124,71 +197,144 @@ def phase_a(dev):
     results = {}
     for name, index in indexes.items():
         res = results[name] = {}
-        for r in (5000, 1500):
+        lanes = 2 if name == "ray_topk_fused" else 1
+        for r in RAY_BATCHES:
             i, j = sampling.sample_pixels_uniform(0, cfg["cam"]["H"], 0,
                                                   cfg["cam"]["W"], r, g, dev)
             rays_o, rays_d = camera.rays_from_uv(
                 i, j, c2w_d, cfg["cam"]["fx"], cfg["cam"]["fy"],
                 cfg["cam"]["cx"], cfg["cam"]["cy"])
             dep = sampling.gather_pixels(depth_d, i, j)
-            z = R.build_z_vals(rc, dep, torch.ones_like(dep, dtype=bool))
+            z, _ = R.build_z_vals(rc, index, rays_o, rays_d, dep,
+                                  torch.full_like(dep, 0.16),
+                                  torch.ones_like(dep, dtype=bool))
             q = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
             probes, compact = knn._box_probes(q, index.cell_size,
                                               index.table_size, p_ray)
-            qk = (knn._query_lattice(q, index.cell_size)
-                  if name == "ray_topk_packed" else q).contiguous()
+            qk = (q if name == "ray_topk_planes"
+                  else knn._query_lattice(q, index.cell_size)).contiguous()
             planes = knn.index_planes(index)
-            lane_mask = knn._lane_mask(p_ray * index.max_per_cell)
+            c = index.max_per_cell
+            lane_mask = knn._lane_mask(p_ray * c * lanes)
             run = lambda: knn.ray_topk(probes, planes, qk, k, lane_mask)
             plain = lambda: knn.ray_topk_reference(probes, planes, qk, k,
                                                    lane_mask)
             keys, ids = run()
             rkeys, rids = plain()
             torch.cuda.synchronize()
+            # ids as int32 bit patterns (K3's may be NaN bits as floats)
+            ib, rib = ids.view(torch.int32), rids.view(torch.int32)
             err = max((keys.long() - rkeys.long()).abs().max().item(),
-                      (ids - rids).nan_to_num().abs().max().item())
-            equal = torch.equal(keys, rkeys) and torch.equal(ids, rids)
+                      (ib.long() - rib.long()).abs().max().item())
+            equal = torch.equal(keys, rkeys) and torch.equal(ib, rib)
             ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+            (b_ms, b_by), rows = topk_bound(name, probes, c, ns, k)
             print(f"[A] {name} R={r} ns={ns} k={k} P={p_ray}: keys/ids equal "
                   f"to plain: {equal} (max abs err {err}, tolerance 0); "
                   f"valid slots {(keys < 0x7F800000).float().mean().item():.4f}"
                   f", compact rays {compact.float().mean().item():.4f}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}; {rows} distinct rows)", flush=True)
             if not equal:
                 raise AssertionError(f"{name} at R={r} differs from plain")
-            res[r] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+            res[r] = {"max_abs_err": float(err), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+    results["row_adam"] = phase_a_row_adam(dev, cfg, cloud, depth_d, c2w_d)
     return results
 
 
-def run_slam(dev, n_frames: int, packed_coords: bool, iters_first: int):
-    """PointSLAM over frames 0..n_frames-1; returns (summary, slam,
-    per-phase launch counts)."""
-    from point_slam_tpu_torch.ops import knn
+def phase_a_row_adam(dev, cfg, cloud, depth_d, c2w_d):
+    """K4 on the (CAP, 72) buffer with the frame's frustum as the row mask:
+    p, m, v EQUAL to the plain version (0 ulp)."""
+    import torch
+    from point_slam_tpu_torch import pointcloud as pc
+    from point_slam_tpu_torch.ops import adam
+    cap, w = cloud.packed.shape
+    cam = cfg["cam"]
+    frustum = pc.frustum_mask(cloud.pos, cloud.n_points,
+                              torch.linalg.inv(c2w_d), depth_d, cam["fx"],
+                              cam["fy"], cam["cx"], cam["cy"],
+                              cfg["mapping"]["frustum_edge"]).float()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p0 = cloud.packed.clone()
+    g0 = 1e-3 * torch.randn((cap, w), generator=gen, device=dev)
+    m0 = 1e-4 * torch.randn((cap, w), generator=gen, device=dev)
+    v0 = 1e-6 * torch.rand((cap, w), generator=gen, device=dev)
+    t_row = torch.full((w,), 37.0, device=dev)   # geometry / rest columns
+    t_row[32:64] = 12.0                          # colour columns restarted
+    lr_row = torch.zeros(w, device=dev)
+    lr_row[:32], lr_row[32:64] = 0.03, 0.005
+    pk, sk = adam.update_rows(p0.clone(), g0, {"m": m0.clone(),
+                                               "v": v0.clone()},
+                              t_row, lr_row, frustum)
+    pr, sr = adam.update_rows_reference(p0, g0, {"m": m0, "v": v0}, t_row,
+                                        lr_row, frustum)
+    torch.cuda.synchronize()
+    pairs = [(pk, pr), (sk["m"], sr["m"]), (sk["v"], sr["v"])]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    ulps = max((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max().item() for a, b in pairs)
+    buf = {"p": p0.clone(), "m": m0.clone(), "v": v0.clone()}
+    run = lambda: adam.update_rows(buf["p"], g0, buf, t_row, lr_row, frustum)
+    plain = lambda: adam.update_rows_reference(p0, g0, {"m": m0, "v": v0},
+                                               t_row, lr_row, frustum)
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    # the launch alone, without the wrapper's bias-correction ops
+    from point_slam_tpu_torch.ops import _build
+    c1, c2 = adam.bias_corrections(t_row, 0.9, 0.999, dev)
+    ptrs = [x.data_ptr() for x in (buf["p"], g0, buf["m"], buf["v"],
+                                   frustum, c1, c2, lr_row)]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load_library()
+    launch_ms = cuda_ms(lambda: lib.row_adam(
+        *ptrs, cap, w, 0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8, n_sm, stream))
+    b_ms, b_by = bound(7 * cap * w * 4 + cap * 4, cap * w * ADAM_FLOPS)
+    print(f"[A] row_adam N={cap} W={w} ({int(frustum.sum())} rows in the "
+          f"frustum): p/m/v equal to plain: {equal} (max abs err {err}, "
+          f"max {ulps} ulp, tolerance 0); kernel {ms:.4f} ms (the launch "
+          f"alone {launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})", flush=True)
+    if not equal:
+        raise AssertionError(f"row_adam differs from plain by {ulps} ulp")
+    return {cap: {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by}}
+
+
+def run_slam(dev, cfg, setup=None):
+    """PointSLAM over the config's frames; returns (summary, slam,
+    per-phase launch counts, totals). Every kernel count is set to 0 just
+    before the run and read just after it. ``setup(slam)`` runs first."""
+    from point_slam_tpu_torch.ops import adam, knn
     from point_slam_tpu_torch.slam import PointSLAM
 
-    cfg = bench_config(n_frames)
-    cfg["mapping"]["iters_first"] = iters_first
-    cfg["cuda"]["knn_packed_coords"] = packed_coords
+    def launches():
+        return {**knn.LAUNCHES, **adam.LAUNCHES}
+
     slam = PointSLAM(cfg, device=dev)
-    per_phase = {"track": dict.fromkeys(knn.LAUNCHES, 0),
-                 "map": dict.fromkeys(knn.LAUNCHES, 0)}
+    if setup is not None:
+        setup(slam)
+    per_phase = {"track": dict.fromkeys(launches(), 0),
+                 "map": dict.fromkeys(launches(), 0)}
 
     def counted(fn, phase):
         def wrapped(*a, **kw):
-            before = dict(knn.LAUNCHES)
+            before = launches()
             out = fn(*a, **kw)
-            for name in knn.LAUNCHES:
-                per_phase[phase][name] += knn.LAUNCHES[name] - before[name]
+            for name, v in launches().items():
+                per_phase[phase][name] += v - before[name]
             return out
         return wrapped
 
     slam.tracker.track_frame = counted(slam.tracker.track_frame, "track")
     slam.mapper.map_frame = counted(slam.mapper.map_frame, "map")
-    for name in knn.LAUNCHES:
-        knn.LAUNCHES[name] = 0
+    for table in (knn.LAUNCHES, adam.LAUNCHES):
+        for name in table:
+            table[name] = 0
     summary = slam.run()
-    totals = dict(knn.LAUNCHES)
-    return summary, slam, per_phase, totals
+    return summary, slam, per_phase, launches()
 
 
 def phase_b(dev):
@@ -197,8 +343,11 @@ def phase_b(dev):
 
     if ITERS_FIRST != 1500:
         print(f"[B] mapping.iters_first cut from 1500 to {ITERS_FIRST}")
+    cfg = bench_config(7)
+    cfg["mapping"]["iters_first"] = ITERS_FIRST
+    cfg["cuda"]["knn_packed_coords"] = True
     t0 = time.perf_counter()
-    summary, slam, per_phase, totals = run_slam(dev, 7, True, ITERS_FIRST)
+    summary, slam, per_phase, totals = run_slam(dev, cfg)
     wall = time.perf_counter() - t0
     name = "ray_topk_packed"
     print(f"[B] launches of {name}: tracking {per_phase['track'][name]}, "
@@ -231,7 +380,10 @@ def phase_b(dev):
           f"card {card_line()}", flush=True)
 
     # the f32-plane cell table (knn_packed_coords: false) goes through K2
-    summary2, _, per_phase2, totals2 = run_slam(dev, 3, False, 100)
+    cfg = bench_config(3)
+    cfg["mapping"]["iters_first"] = 100
+    cfg["cuda"]["knn_packed_coords"] = False
+    summary2, _, per_phase2, totals2 = run_slam(dev, cfg)
     print(f"[B] f32-plane run (frames 0-2): launches {per_phase2}")
     if per_phase2["map"]["ray_topk_planes"] == 0 or \
             per_phase2["track"]["ray_topk_planes"] == 0:
@@ -240,6 +392,88 @@ def phase_b(dev):
         raise AssertionError("non-finite poses in the f32-plane run")
     return {"ray_topk_packed": totals["ray_topk_packed"],
             "ray_topk_planes": totals2["ray_topk_planes"]}
+
+
+def phase_c(dev):
+    """The sensor-shaped path (room_sensor.yaml) through K3 and K4."""
+    import numpy as np
+    from point_slam_tpu_torch.datasets import get_dataset
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+
+    cfg = sensor_config()
+    print(f"[C] cut: synthetic.n_frames 120 -> {SENSOR_FRAMES}", flush=True)
+    print(f"[C] cut: mapping.iters_first 1500 -> {SENSOR_ITERS_FIRST}",
+          flush=True)
+    print(f"[C] cut: mapping.iters 300 -> {SENSOR_ITERS}", flush=True)
+    ds = get_dataset(cfg)
+    holes = [int((ds[i][2] == 0).sum()) for i in range(SENSOR_FRAMES)]
+    print(f"[C] zero-depth pixels per frame: {holes}", flush=True)
+    if min(holes) == 0:
+        raise AssertionError("a frame without depth-free pixels")
+
+    kf_before = []   # the store's keyframe poses before BA can run
+
+    def snapshot(slam):
+        inner = slam.mapper.map_frame
+
+        def wrapped(idx, *a, **kw):
+            if idx == 10:
+                kf_before.extend(p.copy() for p in slam.mapper.store.est_c2w)
+            return inner(idx, *a, **kw)
+        slam.mapper.map_frame = wrapped
+
+    t0 = time.perf_counter()
+    summary, slam, per_phase, totals = run_slam(dev, cfg, snapshot)
+    wall = time.perf_counter() - t0
+    stats = slam.mapper.frame_stats
+    mapped = sorted(stats)
+    last = mapped[-1]
+    map_iters = sum(stats[i]["n_iters"] * stats[i]["outer_loops"]
+                    for i in mapped)
+    print(f"[C] launches: tracking {per_phase['track']}; mapping "
+          f"{per_phase['map']}; mapping iterations {map_iters}", flush=True)
+    if per_phase["track"]["ray_topk_fused"] == 0 or \
+            per_phase["map"]["ray_topk_fused"] == 0:
+        raise AssertionError("ray_topk_fused did not run in both tracking "
+                             "and mapping")
+    if per_phase["map"]["row_adam"] != map_iters or \
+            totals["row_adam"] != map_iters:
+        raise AssertionError(f"row_adam launched {totals['row_adam']} times "
+                             f"for {map_iters} mapping iterations")
+    shift = max(np.abs(p - slam.mapper.store.est_c2w[k]).max()
+                for k, p in enumerate(kf_before))
+    print(f"[C] BA on at frames {[i for i in mapped if stats[i]['ba']]}; "
+          f"largest keyframe pose change {shift:.6f}; refinement windows "
+          f"{stats[last]['outer_loops']} at frame {last} "
+          f"({stats[last]['n_iters']} iterations each)", flush=True)
+    if not shift > 1e-5:
+        raise AssertionError("BA moved no keyframe pose")
+    if stats[last]["outer_loops"] != 5:
+        raise AssertionError("the last frame's refinement did not run 5 "
+                             "windows")
+    est = summary["estimate_c2w_list"]
+    if not np.isfinite(est).all():
+        raise AssertionError("non-finite poses")
+    ate = evaluate_ate(summary["gt_c2w_list"], est, align=False)[
+        "absolute_translational_error.rmse"]
+    ft = summary["frame_times"]
+    busy = sum(ft[i]["track"] + ft[i]["map"] for i in range(1, SENSOR_FRAMES))
+    print(f"[C] ATE no-align {ate * 100:.4f} cm; points "
+          f"{[stats[i]['n_points'] for i in mapped]}; keyframes "
+          f"{summary['keyframes']}; exposure latents "
+          f"{len(slam.mapper.exposure_feat_all)}", flush=True)
+    print(f"[C] tracked frame times (s): "
+          f"{ {i: round(ft[i]['track'], 4) for i in ft if ft[i]['track']} }; "
+          f"mapped frame times (s): "
+          f"{ {i: round(ft[i]['map'], 4) for i in mapped} } (iterations "
+          f"{[stats[i]['n_iters'] * stats[i]['outer_loops'] for i in mapped]}"
+          f"); frames 1-{SENSOR_FRAMES - 1} "
+          f"{(SENSOR_FRAMES - 1) / busy:.4f} frames/s; run wall {wall:.2f} s;"
+          f" timing {summary['timing']}; card {card_line()}", flush=True)
+    if not ate < 0.02:
+        raise AssertionError(f"ATE no-align {ate} m >= 2 cm")
+    return {"ray_topk_fused": totals["ray_topk_fused"],
+            "row_adam": totals["row_adam"]}
 
 
 def main():
@@ -264,20 +498,36 @@ def main():
 
     a = phase_a(dev)
     launches = phase_b(dev)
-
-    replaces = {"ray_topk_packed": "point_slam_tpu/ops/knn.py:664",
-                "ray_topk_planes": "point_slam_tpu/ops/knn.py:630"}
-    kernels = [{"name": name, "route": "cuda",
-                "source": "point_slam_tpu_torch/ops/csrc/ray_topk.cu",
-                "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": max(a[name][r]["max_abs_err"] for r in a[name]),
-                "ms": a[name][5000]["ms"], "plain_ms": a[name][5000]["plain_ms"]}
-               for name in ("ray_topk_packed", "ray_topk_planes")]
-    print(json.dumps({"kernels": kernels}))
+    launches.update(phase_c(dev))
+    print(json.dumps({"kernels": kernel_records(a, launches)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def kernel_records(a, launches):
+    """The kernels' JSON records from phase A's measurements and the main
+    paths' launch counts."""
+    replaces = {"ray_topk_packed": "point_slam_tpu/ops/knn.py:664",
+                "ray_topk_planes": "point_slam_tpu/ops/knn.py:630",
+                "ray_topk_fused": "point_slam_tpu/ops/knn.py:694",
+                "row_adam": "point_slam_tpu/ops/adam.py:60"}
+    kernels = []
+    for name in replaces:
+        shape = max(a[name])                 # R=5000; N=CAP for row_adam
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("point_slam_tpu_torch/ops/csrc/row_adam.cu"
+                       if name == "row_adam" else
+                       "point_slam_tpu_torch/ops/csrc/ray_topk.cu"),
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(v["max_abs_err"] for v in a[name].values()),
+            **{key: a[name][shape][key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            # no single PyTorch call computes any of the four functions
+            "library_ms": None})
+    return kernels
 
 
 if __name__ == "__main__":

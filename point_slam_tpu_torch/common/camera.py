@@ -72,6 +72,15 @@ def pose_matrix_from_tensor(inputs: torch.Tensor) -> torch.Tensor:
     return rt[0] if single else rt
 
 
+def pose_matrix_from_tensor_np(cam: np.ndarray) -> np.ndarray:
+    """(w,x,y,z,tx,ty,tz) -> 4x4 f32 pose matrix, host-side (the f32
+    arithmetic of ``pose_matrix_from_tensor``)."""
+    rt = pose_matrix_from_tensor(torch.as_tensor(np.asarray(cam, np.float32)))
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :4] = rt.numpy()
+    return out
+
+
 def rotation_to_quat_np(rot: np.ndarray) -> np.ndarray:
     """Single rotation matrix -> (x,y,z,w) quaternion, scipy-compatible
     branch choice (as ``point_slam_tpu.common.camera``)."""
@@ -96,10 +105,14 @@ def rotation_to_quat_np(rot: np.ndarray) -> np.ndarray:
     return q / np.linalg.norm(q)
 
 
-def tensor_from_pose_matrix(rt: np.ndarray) -> np.ndarray:
-    """3x4/4x4 pose -> 7-vector (w,x,y,z,tx,ty,tz), host-side."""
+def tensor_from_pose_matrix(rt: np.ndarray, t_first: bool = False
+                            ) -> np.ndarray:
+    """3x4/4x4 pose -> 7-vector (w,x,y,z,tx,ty,tz), or (tx,ty,tz,w,x,y,z)
+    with ``t_first``; host-side."""
     rt = np.asarray(rt)
     quad = np.roll(rotation_to_quat_np(rt[:3, :3]), 1)  # xyzw -> wxyz
+    if t_first:
+        return np.concatenate([rt[:3, 3], quad], 0).astype(np.float32)
     return np.concatenate([quad, rt[:3, 3]], 0).astype(np.float32)
 
 

@@ -30,7 +30,11 @@ CUDA_DEFAULTS: Dict[str, Any] = {
                                           # 'auto' (on CUDA) | True | False
         "knn_packed_coords": "auto",      # lattice-packed cell table:
                                           # 'auto' (on CUDA) | True | False
+                                          # | 'fused' (coords|ids in one
+                                          # i32 plane)
         "keyframe_device_budget": 1024,   # keyframes held on the device
+        "fused_adam": False,              # the fused row-Adam kernel for
+                                          # the packed (CAP, 72) leaf
     },
 }
 
@@ -78,33 +82,19 @@ def load_config(path: str, default_path: Optional[str] = None
     return cfg
 
 
-def check_supported(cfg: Dict[str, Any], will_refine: bool = False) -> None:
-    """Raise NotImplementedError for every path this port does not carry yet.
-
-    ``will_refine``: the run reaches the sequence's last frame, where
-    ``mapping.color_refine`` would run.
-    """
+def check_supported(cfg: Dict[str, Any]) -> None:
+    """Raise NotImplementedError for every path this port does not carry
+    yet."""
     mp, tr = cfg["mapping"], cfg["tracking"]
     cuda = cfg.get("cuda", {})
     unsupported = [
-        (mp.get("BA"), "bundle adjustment (mapping.BA)"),
-        (cfg["model"].get("encode_exposure"),
-         "exposure compensation (model.encode_exposure)"),
-        (mp.get("color_refine") and will_refine,
-         "colour refinement at the last frame (mapping.color_refine)"),
         (mp.get("vis_inside") or tr.get("vis_inside"),
          "in-loop visualisation (vis_inside)"),
-        (cfg["rendering"].get("sample_near_pcl"),
-         "near-cloud sampling of depth-free rays (rendering.sample_near_pcl)"),
         (cfg.get("wandb"), "the metrics sink (wandb)"),
         (cuda.get("keyframe_host_ring") not in (None, False, "auto"),
          "the host-side keyframe ring (cuda.keyframe_host_ring)"),
         (int(cuda.get("data_parallel", 1) or 1) > 1,
          "data parallelism (cuda.data_parallel > 1)"),
-        (cuda.get("knn_packed_coords") == "fused",
-         "the fused coords|ids cell table (cuda.knn_packed_coords: fused)"),
-        (cuda.get("fused_adam") not in (None, False),
-         "the fused row-Adam (cuda.fused_adam)"),
     ]
     for on, what in unsupported:
         if on:

@@ -46,6 +46,8 @@ def decoders_from_numpy(tree: Mapping[str, Any], cfg: Dict[str, Any],
     col = tree["col"]
     for k in ("l1", "l2"):
         _load_linear(dec.col.mlp_col_neighbor[k], col["mlp_col_neighbor"][k])
+        if "mlp_exposure" in col:
+            _load_linear(dec.col.mlp_exposure[k], col["mlp_exposure"][k])
     with torch.no_grad():
         dec.col.embedder_rel_B.copy_(_t(col["embedder_rel_B"], "cpu",
                                         torch.float32))
@@ -63,12 +65,17 @@ def cloud_from_numpy(packed, n_points, input_pos, input_rgb, n_inputs,
 
 
 def index_from_numpy(fields: Mapping[str, Any], device="cpu"):
-    """A JAX GridIndex (px, py, pz, pid, cell_size, counts) or
-    PackedGridIndex (pxyz, pid, cell_size, counts), as a dict of numpy
-    arrays (``index._asdict()``), as the port's index of the same layout."""
-    common = dict(pid=_t(fields["pid"], device, torch.float32),
-                  cell_size=_t(fields["cell_size"], device, torch.float32),
-                  counts=_t(fields["counts"], device, torch.long))
+    """A JAX GridIndex (px, py, pz, pid, cell_size, counts),
+    PackedGridIndex (pxyz, pid, cell_size, counts) or FusedGridIndex
+    (plane, cell_size, counts), as a dict of numpy arrays
+    (``index._asdict()``), as the port's index of the same layout."""
+    cell_counts = dict(
+        cell_size=_t(fields["cell_size"], device, torch.float32),
+        counts=_t(fields["counts"], device, torch.long))
+    if "plane" in fields:
+        return knn.FusedGridIndex(
+            plane=_t(fields["plane"], device, torch.int32), **cell_counts)
+    common = dict(pid=_t(fields["pid"], device, torch.float32), **cell_counts)
     if "pxyz" in fields:
         return knn.PackedGridIndex(
             pxyz=_t(fields["pxyz"], device, torch.int32), **common)

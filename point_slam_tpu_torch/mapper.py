@@ -7,10 +7,17 @@ and the iteration budget; then ``map_optimize`` runs the two-stage
 rays sampled from the device-resident keyframe window, rendering, masked
 losses, and per-group Adam steps. The packed (CAP, 72) cloud is one leaf
 with per-column learning rates and step counts; the frustum row mask
-multiplies its gradient. The colour groups restart their step count at the
-geometry -> colour switch, as torch.optim.Adam does for a group whose first
-gradient arrives there. The loop has no host sync per iteration apart from
-the count of non-compact rays in the kNN fallback.
+multiplies its gradient (or rides into the fused row-Adam kernel). The
+colour groups restart their step count at the geometry -> colour switch,
+as torch.optim.Adam does for a group whose first gradient arrives there.
+The loop has no host sync per iteration apart from the counts of
+non-compact and depth-free rays in the kNN paths.
+
+With ``model.encode_exposure`` each window slot carries an exposure latent
+(only the current frame's moves); with ``mapping.BA`` and more than four
+keyframes the window cameras become optimised (quaternion, translation)
+leaves, the oldest keyframe fixed; ``map_frame(color_refine=True)`` reruns
+five random windows over the whole cloud with the colour decoder frozen.
 """
 
 from __future__ import annotations
@@ -44,12 +51,16 @@ class MapperStatic(NamedTuple):
     add_max: int          # candidate rays for uniform densification
     grad_max: int         # candidate rays for colour-gradient densification
     grad_top: int         # top-k pool for colour-gradient selection
+    encode_exposure: bool = False
+    ba: bool = False      # bundle adjustment: optimise the window cameras
+    fused_adam: bool = False  # the row-Adam kernel for the packed leaf
 
 
 class KeyframeStore:
-    """Keyframe database: poses on the host, images on the device as
-    (H,W,5) u8 wire frames in one ring tensor. r_query is recomputed from
-    the decoded colour when a window is gathered."""
+    """Keyframe database: poses and exposure latents on the host, images on
+    the device as (H,W,5) u8 wire frames in one ring tensor. r_query is
+    recomputed from the decoded colour when a window is gathered; bundle
+    adjustment writes poses back with ``set_est_c2w``."""
 
     def __init__(self, cfg, h: int, w: int, n_img: int, keyframe_every: int,
                  device):
@@ -64,6 +75,8 @@ class KeyframeStore:
         self.h, self.w = h, w
         self.device = device
         self.est_c2w: List[np.ndarray] = []
+        self.exposure_dim = int(cfg["model"]["exposure_dim"])
+        self.exposure: List[np.ndarray] = []
         self.depth_scale = float(cfg["cam"]["png_depth_scale"])
         pcfg = cfg["pointcloud"]
         self.dyn = bool(cfg["use_dynamic_radius"])
@@ -74,7 +87,7 @@ class KeyframeStore:
         self.ring = torch.zeros((self.capacity, h, w, 5), dtype=torch.uint8,
                                 device=device)
 
-    def append(self, color_dev, depth_dev, est_c2w) -> None:
+    def append(self, color_dev, depth_dev, est_c2w, exposure=None) -> None:
         slot = len(self.est_c2w)
         if slot >= self.capacity:
             raise RuntimeError(
@@ -83,6 +96,12 @@ class KeyframeStore:
         self.ring[slot] = image.encode_wire_frame(color_dev, depth_dev,
                                                   self.depth_scale)
         self.est_c2w.append(np.asarray(est_c2w, np.float32))
+        self.exposure.append(
+            np.zeros(self.exposure_dim, np.float32) if exposure is None
+            else np.asarray(exposure, np.float32))
+
+    def set_est_c2w(self, slot: int, c2w) -> None:
+        self.est_c2w[slot] = np.asarray(c2w, np.float32)
 
     def est_c2w_padded(self, min_pad: int = 64) -> torch.Tensor:
         """(K',4,4) poses padded with identities to a power of two."""
@@ -94,8 +113,9 @@ class KeyframeStore:
         return torch.as_tensor(arr, device=self.device)
 
     def gather_window(self, sel: Sequence[int], f_max: int):
-        """Window tensors (f_max leading dim) for keyframe slots ``sel``;
-        slots past len(sel) are padding (r_query 1e6)."""
+        """Window tensors (f_max leading dim) for keyframe slots ``sel``:
+        color, depth, r_query, c2w and the exposure latents; slots past
+        len(sel) are padding (r_query 1e6, identity pose, zero latent)."""
         slots = torch.as_tensor((list(sel) + [0] * f_max)[:f_max],
                                 device=self.device)
         color, depth = image.decode_wire_frame(self.ring[slots],
@@ -105,9 +125,12 @@ class KeyframeStore:
             rq[k] = (image.dynamic_radius_maps(color[k], *self.rq_args)[1]
                      if self.dyn else self.rq_fixed)
         c2w = np.tile(np.eye(4, dtype=np.float32), (f_max, 1, 1))
+        exp = np.zeros((f_max, self.exposure_dim), np.float32)
         for k, s in enumerate(sel):
             c2w[k] = self.est_c2w[s]
-        return color, depth, rq, torch.as_tensor(c2w, device=self.device)
+            exp[k] = self.exposure[s]
+        return (color, depth, rq, torch.as_tensor(c2w, device=self.device),
+                torch.as_tensor(exp, device=self.device))
 
 
 def overlap_scores(ms: MapperStatic, ring_est_c2w, n_kf: int, cur_c2w,
@@ -187,14 +210,27 @@ def _rays_world(rays, c2w_all):
     return c2w[:, :3, 3], rays_d
 
 
+def _cam_poses(cams: torch.Tensor) -> torch.Tensor:
+    """(F, 7) quaternion + translation cameras -> (F, 4, 4) poses,
+    differentiable."""
+    rt = camera.pose_matrix_from_tensor(cams)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cams.device)
+    return torch.cat([rt, bottom.expand(rt.shape[0], 1, 4)], dim=1)
+
+
 def _losses(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index, rays,
-            c2w_all, stage_color: bool, fill: torch.Tensor):
-    """Masked geometry (+colour) L1 losses of one ray batch. Returns
-    (loss, geo_loss, color_loss, n_mask)."""
+            c2w_all, stage_color: bool, fill: torch.Tensor,
+            window_exposure: Optional[torch.Tensor] = None):
+    """Masked geometry (+colour) L1 losses of one ray batch. With
+    ``ms.encode_exposure`` each ray's colour takes its window slot's
+    exposure affine (``window_exposure`` (F, dim)); with ``ms.ba`` the
+    neighbour distances are differentiable in the (BA) poses ``c2w_all``.
+    Returns (loss, geo_loss, color_loss, n_mask)."""
     rays_o, rays_d = _rays_world(rays, c2w_all)
     depth, _, color, valid_ray = R.render_rays(
         dec, packed, index, rays_o, rays_d, rays["gt_depth"],
         rays["r_query"], rays["ray_ok"], rc, stage_color=stage_color,
+        is_tracker=ms.ba, apply_sigmoid_color=not ms.encode_exposure,
         fill=fill)
     mask = (rays["gt_depth"] > 0) & valid_ray & rays["ray_ok"]
     mask &= ~torch.isnan(depth)
@@ -203,6 +239,11 @@ def _losses(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index, rays,
     loss = geo_loss
     color_loss = torch.zeros((), device=depth.device)
     if stage_color:
+        if ms.encode_exposure:
+            rot, trans = dec.col.exposure_affine(window_exposure)
+            slot = rays["slot"]
+            color = torch.sigmoid(
+                torch.einsum("rk,rkl->rl", color, rot[slot]) + trans[slot])
         color_loss = torch.sum(torch.where(
             mask[:, None], torch.abs(rays["gt_color"] - color), 0.0))
         loss = loss + ms.w_color_loss * color_loss
@@ -221,7 +262,9 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                  window, n_frames: int, pixs_per_image: int, frustum,
                  lr_geo_stage: Sequence[float], lr_color_stage: Sequence[float],
                  fix_color: float, geo_iter_bound: int, n_iters: int,
-                 generator: Optional[torch.Generator] = None, draws=None):
+                 generator: Optional[torch.Generator] = None, draws=None,
+                 exposure: Optional[torch.Tensor] = None, cur_slot: int = 0,
+                 lr_exposure: float = 0.001, ba: Optional[Dict] = None):
     """The per-frame mapping optimisation, a loop of ``n_iters`` iterations.
 
     ``window``: (color (F,H,W,3), depth (F,H,W), r_query (F,H,W),
@@ -230,21 +273,47 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     ``fix_color`` 0.0 freezes the colour decoder. ``draws``: optional
     per-iteration list of (i, j, fill); drawn from ``generator`` otherwise.
 
+    ``exposure``: the window's (F, dim) exposure latents, a leaf whose
+    gradient is masked to ``cur_slot`` (learning rate ``lr_exposure``, the
+    colour step count). ``ba``: bundle adjustment, a dict of ``cams``
+    (F, 7) initial cameras, ``mask`` (F,) 0/1 (0 for the oldest keyframe
+    and the padding), ``lr`` and the iteration window ``lo``..``hi``
+    outside which the camera learning rate is 0; the cameras take the
+    geometry step count and replace the window poses.
+
+    With ``ms.fused_adam`` the packed leaf steps through
+    ``adam.update_rows`` (the CUDA kernel on the card, in place) with the
+    frustum as its row mask.
+
     Updates ``dec`` in place and returns (packed, stats (3,) device tensor
-    [geo_loss, color_loss, n_mask] of the last iteration).
+    [geo_loss, color_loss, n_mask] of the last iteration, the exposure
+    latents or None, the BA cameras or None).
     """
     color, depth, rquery, c2w_all = window
     dev = packed.device
     col_params = list(dec.col.parameters())
     geo_params = [] if ms.fix_geo_decoder else list(dec.geo.parameters())
-    leaves = [packed.detach()] + col_params + geo_params
-    state = adam.init_state(leaves)
+    # the fused path updates the packed leaf in place: own a copy
+    leaves = ([packed.detach().clone() if ms.fused_adam else packed.detach()]
+              + col_params + geo_params)
     n_col = len(col_params)
+    n_dec = n_col + len(geo_params)
+    i_exp = i_cam = None
+    if exposure is not None:
+        i_exp = len(leaves)
+        leaves.append(exposure.detach().clone())
+        exp_onehot = (torch.arange(exposure.shape[0], device=dev)
+                      == cur_slot).float()[:, None]
+    if ba is not None:
+        i_cam = len(leaves)
+        leaves.append(ba["cams"].detach().clone())
+        ba_mask = ba["mask"].float()[:, None]
+    state = adam.init_state(leaves)
     geo_cols, col_cols = _column_rows(dev)
     rest_cols = 1.0 - geo_cols - col_cols
     lr_rows = [geo_cols * lrs[1] + col_cols * lrs[2]
                for lrs in (lr_geo_stage, lr_color_stage)]
-    frustum_f = frustum[:, None].float()
+    frustum_f = frustum.float()
     stats = torch.zeros(3, device=dev)
     for it in range(n_iters):
         i, j, fill = draws[it] if draws is not None else (None, None, None)
@@ -253,32 +322,64 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
         if fill is None:
             fill = R.draw_fill(generator, dev)
         stage_geo = it <= geo_iter_bound
-        packed_leaf = leaves[0].requires_grad_(True)
+        leaves[0].requires_grad_(True)
+        for k in (i_exp, i_cam):
+            if k is not None:
+                leaves[k].requires_grad_(True)
         loss, geo_l, col_l, n_mask = _losses(
-            ms, rc, dec, packed_leaf, index, rays, c2w_all,
-            stage_color=not stage_geo, fill=fill)
+            ms, rc, dec, leaves[0], index, rays,
+            c2w_all if i_cam is None else _cam_poses(leaves[i_cam]),
+            stage_color=not stage_geo, fill=fill,
+            window_exposure=None if i_exp is None else leaves[i_exp])
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
-            grads[0] = grads[0] * frustum_f
             for k in range(1, 1 + n_col):
                 grads[k] = grads[k] * fix_color
+            if i_exp is not None:
+                grads[i_exp] = grads[i_exp] * exp_onehot
+            if i_cam is not None:
+                # the oldest keyframe anchors the map; padding slots too
+                grads[i_cam] = grads[i_cam] * ba_mask
             lrs = lr_geo_stage if stage_geo else lr_color_stage
             t_geo = float(it + 1)
             t_col = float(max(it - geo_iter_bound, 1))
             t_row = geo_cols * t_geo + col_cols * t_col + rest_cols * t_geo
             lr_row = lr_rows[0] if stage_geo else lr_rows[1]
-            ts = [t_row] + [t_col] * n_col + [t_geo] * len(geo_params)
-            lr_all = [lr_row] + [lrs[0]] * (len(leaves) - 1)
-            new, state = adam.update([p.detach() for p in leaves], grads,
-                                     state, ts, lr_all)
-            for p, q in zip(leaves[1:], new[1:]):
+            ts = [t_row] + [t_col] * n_col + [t_geo] * (n_dec - n_col)
+            lr_all = [lr_row] + [lrs[0]] * n_dec
+            if i_exp is not None:
+                ts.append(t_col)
+                lr_all.append(lr_exposure)
+            if i_cam is not None:
+                # the cameras move only in iterations [lo, hi]
+                ts.append(t_geo)
+                lr_all.append(ba["lr"] if ba["lo"] <= it <= ba["hi"] else 0.0)
+            params = [p.detach() for p in leaves]
+            if ms.fused_adam:
+                p0, s0 = adam.update_rows(
+                    params[0], grads[0], {"m": state["m"][0],
+                                          "v": state["v"][0]},
+                    t_row, lr_row, frustum_f)
+                new, rest = adam.update(
+                    params[1:], grads[1:], {"m": state["m"][1:],
+                                            "v": state["v"][1:]},
+                    ts[1:], lr_all[1:])
+                new = [p0] + new
+                state = {"m": [s0["m"]] + rest["m"],
+                         "v": [s0["v"]] + rest["v"]}
+            else:
+                grads[0] = grads[0] * frustum_f[:, None]
+                new, state = adam.update(params, grads, state, ts, lr_all)
+            for p, q in zip(leaves[1:1 + n_dec], new[1:1 + n_dec]):
                 p.copy_(q)
-            leaves[0] = new[0]
+            leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
             stats = torch.stack([geo_l.detach(), col_l.detach(),
                                  n_mask.float()])
-    return leaves[0].detach(), stats
+    return (leaves[0].detach(), stats,
+            None if i_exp is None else leaves[i_exp].detach(),
+            None if i_cam is None else leaves[i_cam].detach())
 
 
 def sample_add_rays(ms: MapperStatic, c2w, gt_color, gt_depth, r_add,
@@ -311,8 +412,9 @@ def sample_grad_rays(ms: MapperStatic, c2w, gt_color, gt_depth, r_add,
 
 class Mapper:
     """Host orchestration of per-frame mapping. Owns the cloud, the
-    keyframe ring, the decoders and the mapping random streams (a torch
-    generator on the device, and a numpy one for window selection)."""
+    keyframe ring, the decoders, the exposure latent and the mapping random
+    streams (a torch generator on the device, and a numpy one for the
+    exposure initialisation and window selection)."""
 
     def __init__(self, cfg, decoders, n_img: int, rng: np.random.Generator,
                  device):
@@ -339,7 +441,9 @@ class Mapper:
             far_end_surface_pc=pcfg["far_end_surface"],
             add_max=mp["pixels_adding"] * 3,
             grad_max=max(mp["pixels_based_on_color_grad"], 1),
-            grad_top=min(5 * max(mp["pixels_based_on_color_grad"], 1), h * w))
+            grad_top=min(5 * max(mp["pixels_based_on_color_grad"], 1), h * w),
+            encode_exposure=bool(cfg["model"]["encode_exposure"]),
+            fused_adam=bool(cfg["cuda"].get("fused_adam", False)))
         self.rc = R.make_render_config(
             cfg, cfg["rendering"]["sigmoid_coef_mapper"], self.device)
         cu = cfg["cuda"]
@@ -352,14 +456,22 @@ class Mapper:
                           max(pcfg["radius_query"], pcfg["radius_add"]))
         self.table_size = cu["grid_table_size"]
         self.max_per_cell = cu["grid_max_per_cell"]
-        self.packed_coords = R.resolve_auto(cu.get("knn_packed_coords", "auto"),
-                                            self.device)
+        packed = cu.get("knn_packed_coords", "auto")
+        self.packed_coords = (packed if packed == "fused"
+                              else R.resolve_auto(packed, self.device))
         self.index = pc.build_index(self.cloud, self.cell_size,
                                     self.table_size, self.max_per_cell,
                                     self.packed_coords)
         self.store = KeyframeStore(cfg, h, w, n_img, mp["keyframe_every"],
                                    self.device)
         self.keyframe_list: List[int] = []
+        self.refine_mode = False         # set per map_frame (color_refine)
+        # drawn whether or not exposure is encoded, as the JAX package does
+        # (it advances the window-selection stream the same way)
+        self.exposure_feat = 0.01 * rng.standard_normal(
+            cfg["model"]["exposure_dim"]).astype(np.float32)
+        self.exposure_feat_all: List[np.ndarray] = []
+        self.color_decoder_snapshots: List[Dict[str, torch.Tensor]] = []
         self.dyn = cfg["use_dynamic_radius"]
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg["setup_seed"]))
@@ -400,7 +512,8 @@ class Mapper:
         """Device overlap scores, or None when the window selection does
         not use them (empty store, or the 'global' method)."""
         n_kf = len(self.keyframe_list)
-        if (n_kf == 0 or self.cfg["mapping"]["keyframe_selection_method"]
+        if (n_kf == 0 or self.refine_mode
+                or self.cfg["mapping"]["keyframe_selection_method"]
                 != "overlap"):
             return None
         i, j = sampling.sample_pixels_uniform(0, self.ms.h, 0, self.ms.w, 200,
@@ -410,13 +523,17 @@ class Mapper:
 
     def select_keyframes(self, scores: Optional[np.ndarray]) -> List[int]:
         """Window of keyframe slots: up to window-2 picks (overlapping, or
-        global) plus the latest keyframe; the current frame rides
-        separately as the last slot."""
+        global; 2*window-2 random ones in colour refinement) plus the
+        latest keyframe; the current frame rides separately as the last
+        slot."""
         num = self.window - 2
         n_kf = len(self.keyframe_list)
         if n_kf == 0:
             return []
-        if scores is None:
+        if self.refine_mode:
+            num = 2 * self.window - 2
+            sel = list(self.rng.permutation(max(n_kf - 1, 0))[:num])
+        elif scores is None:
             sel = list(self.rng.permutation(max(n_kf - 1, 0))[:num])
         else:
             qualifying = [k for k in range(n_kf - 1) if scores[k] > 0.0]
@@ -424,12 +541,21 @@ class Mapper:
         return [int(s) for s in sel] + [n_kf - 1]
 
     def map_frame(self, idx: int, gt_color, gt_depth, gt_c2w, cur_c2w,
-                  radius=None) -> Dict[str, Any]:
+                  color_refine: bool = False, radius=None) -> Dict[str, Any]:
         """Map one frame. ``gt_color``/``gt_depth`` may be numpy or device
-        tensors; ``radius``: optional precomputed radius_maps(color)."""
+        tensors; ``radius``: optional precomputed radius_maps(color).
+
+        ``color_refine``: the end-of-sequence colour refinement: no
+        densification, the whole cloud optimisable, 5 windows of 2*window-2
+        random keyframes, 2*iters iterations each with only iteration 0 in
+        the geometry stage, the colour decoder frozen and the colour
+        features at color_lr/10. With BA the refined poses are written back
+        to the keyframe store and the current one is returned as
+        ``cur_c2w``."""
         cfg = self.cfg
         mp = cfg["mapping"]
         init = idx == 0
+        self.refine_mode = color_refine
         fga = mp.get("fix_geo_decoder_after") or 0
         if fga and not self.ms.fix_geo_decoder and idx >= fga:
             self.ms = self.ms._replace(fix_geo_decoder=True)
@@ -437,48 +563,54 @@ class Mapper:
         dev = self.device
         color = torch.as_tensor(gt_color, device=dev)
         depth = torch.as_tensor(gt_depth, device=dev)
-        cur_c2w_dev = torch.as_tensor(np.asarray(cur_c2w, np.float32),
-                                      device=dev)
+        cur_c2w = np.asarray(cur_c2w, np.float32)
+        cur_c2w_dev = torch.as_tensor(cur_c2w, device=dev)
         r_add, r_query, cand_idx, cand_ok = (
             radius if radius is not None else self.radius_maps(color))
         if cand_ok is not None:
             cand_ok = cand_ok & (depth.reshape(-1)[cand_idx] > 0)
 
         # ---- densification
-        if init:
-            d_host = depth.cpu().numpy()
-            med = (float(np.median(d_host[d_host > 0])) if (d_host > 0).any()
-                   else 2.5)
-            add_n = int(np.clip(mp["pixels_adding"] * (med / 2.5) ** 2,
-                                mp["pixels_adding"], mp["pixels_adding"] * 3))
-        else:
-            add_n = mp["pixels_adding"]
         ms = self.ms
-        self._ensure_capacity((ms.add_max + ms.grad_max) * ms.n_add)
-        fix = cfg["pointcloud"]["fix_interval_when_add_along_ray"]
         n_acc = []
+        if not color_refine:
+            if init:
+                d_host = depth.cpu().numpy()
+                med = (float(np.median(d_host[d_host > 0]))
+                       if (d_host > 0).any() else 2.5)
+                add_n = int(np.clip(mp["pixels_adding"] * (med / 2.5) ** 2,
+                                    mp["pixels_adding"],
+                                    mp["pixels_adding"] * 3))
+            else:
+                add_n = mp["pixels_adding"]
+            self._ensure_capacity((ms.add_max + ms.grad_max) * ms.n_add)
+            fix = cfg["pointcloud"]["fix_interval_when_add_along_ray"]
 
-        def densify(batch):
-            o, d, dep, col, ra, valid = batch
-            n_before = self.cloud.n_points
-            self.cloud, n = pc.add_points(
-                self.cloud, self.index, o, d, dep, col, valid, ra,
-                ms.near_end_surface_pc, ms.far_end_surface_pc, n_add=ms.n_add,
-                fix_interval=fix, generator=self.generator)
-            self.index = pc.insert_index(self.cloud, self.index, n_before,
-                                         m=o.shape[0] * ms.n_add)
-            n_acc.append(n)
+            def densify(batch):
+                o, d, dep, col, ra, valid = batch
+                n_before = self.cloud.n_points
+                self.cloud, n = pc.add_points(
+                    self.cloud, self.index, o, d, dep, col, valid, ra,
+                    ms.near_end_surface_pc, ms.far_end_surface_pc,
+                    n_add=ms.n_add, fix_interval=fix,
+                    generator=self.generator)
+                self.index = pc.insert_index(self.cloud, self.index,
+                                             n_before,
+                                             m=o.shape[0] * ms.n_add)
+                n_acc.append(n)
 
-        densify(sample_add_rays(ms, cur_c2w_dev, color, depth, r_add, add_n,
-                                self.generator))
-        if mp["pixels_based_on_color_grad"] > 0 and cand_idx is not None:
-            # drawn after the first insert, so its dedup sees those points
-            densify(sample_grad_rays(ms, cur_c2w_dev, color, depth, r_add,
-                                     cand_idx, cand_ok, self.generator))
+            densify(sample_add_rays(ms, cur_c2w_dev, color, depth, r_add,
+                                    add_n, self.generator))
+            if mp["pixels_based_on_color_grad"] > 0 and cand_idx is not None:
+                # drawn after the first insert, so its dedup sees those
+                # points
+                densify(sample_grad_rays(ms, cur_c2w_dev, color, depth,
+                                         r_add, cand_idx, cand_ok,
+                                         self.generator))
 
-        # ---- frustum gradient mask
+        # ---- frustum gradient mask (the whole cloud in refinement)
         cap = self.cloud.packed.shape[0]
-        if mp["frustum_feature_selection"]:
+        if mp["frustum_feature_selection"] and not color_refine:
             frustum = pc.frustum_mask(
                 self.cloud.pos, self.cloud.n_points,
                 torch.linalg.inv(cur_c2w_dev), depth, ms.fx, ms.fy, ms.cx,
@@ -488,18 +620,25 @@ class Mapper:
 
         # ---- one host fetch: densify counters + overlap scores
         scores_dev = self._overlap_scores(cur_c2w_dev, depth)
-        fetch = [torch.stack(n_acc).sum().float()[None],
-                 self.cloud.n_points.float()[None]]
+        fetch = []
+        if n_acc:
+            fetch += [torch.stack(n_acc).sum().float()[None],
+                      self.cloud.n_points.float()[None]]
         if scores_dev is not None:
             fetch.append(scores_dev.float())
-        host = torch.cat(fetch).cpu().numpy()
-        n_acc_total = int(host[0])
-        self.n_points_host = int(host[1])
-        scores = host[2:] if scores_dev is not None else None
+        host = torch.cat(fetch).cpu().numpy() if fetch else np.zeros(0)
+        n_acc_total = 0
+        if n_acc:
+            n_acc_total = int(host[0])
+            self.n_points_host = int(host[1])
+            host = host[2:]
+        scores = host if scores_dev is not None else None
 
         # ---- iteration budget
         if init:
             n_iters, geo_bound = mp["iters_first"], mp["geo_iter_first"]
+        elif color_refine:
+            n_iters, geo_bound = 2 * mp["iters"], 0
         else:
             n_iters = int(np.clip(int(mp["iters"] * n_acc_total / 300),
                                   int(mp["min_iter_ratio"] * mp["iters"]),
@@ -510,35 +649,91 @@ class Mapper:
         sched = mp["init" if init else "stage"]
         lr_geo = [sched["geometry"][k] for k in
                   ("decoders_lr", "geometry_lr", "color_lr")]
-        lr_col = [sched["color"][k] for k in
-                  ("decoders_lr", "geometry_lr", "color_lr")]
-        fix_color = 0.0 if mp["fix_color_decoder"] else 1.0
+        if color_refine:
+            lr_col = [sched["color"]["decoders_lr"], 0.0,
+                      sched["color"]["color_lr"] / 10.0]
+            fix_color = 0.0
+        else:
+            lr_col = [sched["color"][k] for k in
+                      ("decoders_lr", "geometry_lr", "color_lr")]
+            fix_color = 0.0 if mp["fix_color_decoder"] else 1.0
 
-        # ---- window + optimise
-        sel = self.select_keyframes(scores)
-        n_frames = len(sel) + 1
-        w_color, w_depth, w_rq, w_c2w = self.store.gather_window(sel, ms.f_max)
-        k = len(sel)
-        w_color[k], w_depth[k], w_rq[k], w_c2w[k] = (color, depth, r_query,
-                                                     cur_c2w_dev)
-        packed, stats_dev = map_optimize(
-            ms, self.rc, self.decoders, self.cloud.packed, self.index,
-            (w_color, w_depth, w_rq, w_c2w), n_frames, ms.r_max // n_frames,
-            frustum, lr_geo, lr_col, fix_color, geo_bound, n_iters,
-            generator=self.generator)
-        self.cloud = self.cloud._replace(packed=packed)
-        stats = stats_dev.cpu().numpy()
+        # ---- window + optimise; colour refinement reruns it 5 times
+        outer_iters = 5 if color_refine else 1
+        stats = np.zeros(3)
+        outer_done = 0
+        for outer in range(outer_iters):
+            sel = self.select_keyframes(scores if outer == 0 else None)
+            n_frames = len(sel) + 1
+            k = len(sel)
+            w_color, w_depth, w_rq, w_c2w, w_exp = self.store.gather_window(
+                sel, ms.f_max)
+            w_color[k], w_depth[k], w_rq[k], w_c2w[k] = (color, depth,
+                                                         r_query, cur_c2w_dev)
+            w_exp[k] = torch.as_tensor(self.exposure_feat, device=dev)
+
+            # ---- bundle adjustment once more than 4 keyframes exist
+            ba_on = bool(mp["BA"]) and len(self.keyframe_list) > 4
+            if ba_on != self.ms.ba:
+                self.ms = ms = self.ms._replace(ba=ba_on)
+            ba = None
+            if ba_on:
+                poses = [self.store.est_c2w[s] for s in sel] + [cur_c2w]
+                # padding slots get IDENTITY quaternions: a zero one is a
+                # NaN pose (2/|q|^2), which would poison every gradient
+                pad_cam = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
+                cams = np.stack([camera.tensor_from_pose_matrix(p)
+                                 for p in poses]
+                                + [pad_cam] * (ms.f_max - n_frames))
+                mask = np.zeros(ms.f_max, np.float32)
+                mask[:n_frames] = 1.0
+                mask[int(np.argmin([self.keyframe_list[s] for s in sel]))] = 0.0
+                ratio = mp["geo_iter_ratio"]
+                ba = dict(cams=torch.as_tensor(cams, device=dev),
+                          mask=torch.as_tensor(mask, device=dev),
+                          lr=float(mp["BA_cam_lr"]),
+                          lo=int(n_iters * (ratio + 0.2)),
+                          hi=int(n_iters * (ratio + 0.3)))
+
+            packed, stats_dev, exp_out, cams_out = map_optimize(
+                ms, self.rc, self.decoders, self.cloud.packed, self.index,
+                (w_color, w_depth, w_rq, w_c2w), n_frames,
+                ms.r_max // n_frames, frustum, lr_geo, lr_col, fix_color,
+                geo_bound, n_iters, generator=self.generator,
+                exposure=w_exp if ms.encode_exposure else None, cur_slot=k,
+                lr_exposure=0.001, ba=ba)
+            self.cloud = self.cloud._replace(packed=packed)
+            if ms.encode_exposure:
+                self.exposure_feat = exp_out[k].cpu().numpy()
+            stats = stats_dev.cpu().numpy()
+            if ba_on:
+                # optimised keyframe poses back to the store; the refined
+                # current pose is the frame's estimate
+                new_poses = [camera.pose_matrix_from_tensor_np(c)
+                             for c in cams_out[:n_frames].cpu().numpy()]
+                for kk, s in enumerate(sel):
+                    self.store.set_est_c2w(s, new_poses[kk])
+                cur_c2w = new_poses[k]
+                cur_c2w_dev = torch.as_tensor(cur_c2w, device=dev)
+            outer_done += 1
+        if ms.encode_exposure:
+            self.exposure_feat_all.append(self.exposure_feat.copy())
+            # the colour decoder each exposure latent was trained against
+            self.color_decoder_snapshots.append(
+                {n: p.detach().cpu().clone()
+                 for n, p in self.decoders.col.state_dict().items()})
 
         # ---- keyframe bookkeeping
         if ((idx % mp["keyframe_every"] == 0 or idx == self.n_img - 2)
                 and idx not in self.keyframe_list
                 and np.isfinite(gt_c2w).all()):
-            self.store.append(color, depth, cur_c2w)
+            self.store.append(color, depth, cur_c2w, self.exposure_feat)
             self.keyframe_list.append(idx)
 
         out = {"geo_loss": float(stats[0]), "color_loss": float(stats[1]),
                "n_mask": float(stats[2]), "n_added": n_acc_total,
                "n_iters": n_iters, "n_points": self.n_points_host,
+               "outer_loops": outer_done, "ba": ba_on,
                "cur_c2w": np.asarray(cur_c2w, np.float32)}
         self.frame_stats[idx] = out
         return out

@@ -11,8 +11,10 @@ JAX parameter tree's names (``pts_linears``, ``fc_c``, ``output_linear``,
   feature injection ``h + fc_c[i](c)``, ReLU, learnable sin-only Fourier
   embedding (3 -> 93, scale 25).
 * ``ColorDecoder``: 5 blocks, hidden 128, fixed sin+cos Fourier embedding
-  (3 -> 40, scale 32), Softplus(beta=100), and the relative-position
-  neighbour encoder F_theta (``mlp_col_neighbor``).
+  (3 -> 40, scale 32), Softplus(beta=100), the relative-position
+  neighbour encoder F_theta (``mlp_col_neighbor``) and, with
+  ``model.encode_exposure``, the exposure MLP (``mlp_exposure``) that maps a
+  per-keyframe latent to a 3x3 + 3 colour affine.
 
 The kNN runs outside (ops/knn.py), so one search feeds both decoders.
 """
@@ -65,6 +67,14 @@ def _xavier_w_torch_b(in_dim, out_dim, generator=None) -> nn.Linear:
     bound = math.sqrt(6.0 / (in_dim + out_dim))
     with torch.no_grad():
         lin.weight.uniform_(-bound, bound, generator=generator)
+    return lin
+
+
+def _normal_w_torch_b(in_dim, out_dim, std=0.01, generator=None) -> nn.Linear:
+    """N(0, std^2) weight, nn.Linear's default bias (the exposure MLP)."""
+    lin = _torch_linear(in_dim, out_dim, generator)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, std, generator=generator)
     return lin
 
 
@@ -121,7 +131,7 @@ class ColorDecoder(nn.Module):
     """RGB for points p; ``encode_neighbor_feats`` is F_theta."""
 
     def __init__(self, c_dim: int = C_DIM, use_view_direction: bool = False,
-                 generator=None):
+                 exposure_dim: int = 0, generator=None):
         super().__init__()
         if use_view_direction:
             raise NotImplementedError(
@@ -142,13 +152,30 @@ class ColorDecoder(nn.Module):
         self.fc_c = nn.ModuleList([_torch_linear(c_dim, COL_HIDDEN, generator)
                                    for _ in range(N_BLOCKS)])
         self.output_linear = _dense(COL_HIDDEN, 3, "linear", generator)
+        if exposure_dim:
+            self.mlp_exposure = nn.ModuleDict({
+                "l1": _normal_w_torch_b(exposure_dim, COL_HIDDEN,
+                                        generator=generator),
+                "l2": _normal_w_torch_b(COL_HIDDEN, 12, generator=generator)})
 
     def forward(self, p: torch.Tensor, c: torch.Tensor,
-                apply_sigmoid: bool = True) -> torch.Tensor:
+                apply_sigmoid: bool = True,
+                exposure_feat: torch.Tensor | None = None) -> torch.Tensor:
+        """RGB (N, 3). With ``exposure_feat`` (one latent) the exposure
+        affine is applied, then the sigmoid."""
         emb = fourier_embed(self.embedder_B, p, concat=True)
         h = _mlp_forward(self.pts_linears, self.fc_c, emb, c, softplus100)
         out = self.output_linear(h)
+        if exposure_feat is not None:
+            rot, trans = self.exposure_affine(exposure_feat)
+            return torch.sigmoid(out @ rot + trans)
         return torch.sigmoid(out) if apply_sigmoid else out
+
+    def exposure_affine(self, exposure_feat: torch.Tensor):
+        """Exposure latent(s) (..., dim) -> (rot (..., 3, 3), trans (..., 3))."""
+        mp = self.mlp_exposure
+        aff = mp["l2"](softplus100(mp["l1"](exposure_feat)))
+        return aff[..., :9].reshape(*aff.shape[:-1], 3, 3), aff[..., 9:]
 
     def encode_neighbor_feats(self, neighbor_pos: torch.Tensor,
                               p: torch.Tensor, neighbor_feats: torch.Tensor
@@ -173,13 +200,11 @@ class Decoders(nn.Module):
         if m["c_dim"] != C_DIM:
             raise NotImplementedError("the packed cloud layout is fixed at "
                                       f"c_dim={C_DIM}")
-        if m.get("encode_exposure"):
-            raise NotImplementedError(
-                "point_slam_tpu_torch does not implement "
-                "model.encode_exposure yet")
         self.geo = GeoDecoder(C_DIM, generator)
-        self.col = ColorDecoder(C_DIM, bool(m.get("use_view_direction")),
-                                generator)
+        self.col = ColorDecoder(
+            C_DIM, bool(m.get("use_view_direction")),
+            int(m["exposure_dim"]) if m.get("encode_exposure") else 0,
+            generator)
 
 
 def init_decoders(cfg: Dict[str, Any], seed: int, device="cpu") -> Decoders:

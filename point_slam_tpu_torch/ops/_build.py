@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source in ``csrc/`` for ``sm_90a``
-into one shared library with a plain C interface, under ``ops/build/``
+At first use, ``nvcc`` compiles each source in ``csrc/`` for ``sm_90a``
+into an object, all of them at once in parallel, and links them into one
+shared library with a plain C interface, under ``ops/build/``
 (git-ignored); the file name carries a hash of the sources, so an edited
 source builds anew. The library is loaded with ``ctypes``: each pointer and
-the stream pass as ``c_void_p``, each launcher returns ``cudaGetLastError()``.
-Nothing here runs at import time.
+the stream pass as ``c_void_p``, each launcher returns
+``cudaGetLastError()``. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lib = None
-build_seconds = None   # wall time of the nvcc run, when this process built
+build_seconds = None   # wall time of the nvcc runs, when this process built
 
 
 def _sources():
@@ -52,23 +53,48 @@ def library_path() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *_sources()]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if verbose or res.returncode:
-        print(res.stdout + res.stderr, flush=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
-    os.replace(tmp, out)                 # atomic: concurrent builds are safe
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        log = proc.communicate()[0]
+        if verbose or proc.returncode:
+            print(log, flush=True)
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("; ".join(failed))
+        tmp = f"{out}.{tag}"
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode:
+            print(res.stdout + res.stderr, flush=True)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(link)}")
+        os.replace(tmp, out)             # atomic: concurrent builds are safe
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        build_seconds = time.perf_counter() - t0
     return out
 
 
@@ -77,16 +103,23 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ray_topk_packed.argtypes = [vp] * 6 + [i] * 6 + [vp]
-        lib.ray_topk_packed.restype = i
         lib.ray_topk_planes.argtypes = [vp] * 8 + [i] * 6 + [vp]
-        lib.ray_topk_planes.restype = i
-        lib.ray_topk_error_string.argtypes = [i]
-        lib.ray_topk_error_string.restype = ctypes.c_char_p
+        lib.ray_topk_fused.argtypes = [vp] * 5 + [i] * 6 + [vp]
+        lib.row_adam.argtypes = ([vp] * 8 + [ctypes.c_long, i] + [f] * 5
+                                 + [i, vp])
+        for fn in (lib.ray_topk_packed, lib.ray_topk_planes,
+                   lib.ray_topk_fused, lib.row_adam):
+            fn.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def error_string(err: int) -> str:
-    return load_library().ray_topk_error_string(err).decode()
+def check(name: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        msg = load_library().cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

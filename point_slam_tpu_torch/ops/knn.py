@@ -14,9 +14,12 @@ Two table layouts, as in the JAX package:
   (quantum cell_size/64, mod 1024, -1 empty) plus the f32 id plane. The
   table coordinates steer selection only: the renderer recomputes exact
   distances from the winners' true coordinates.
+* ``FusedGridIndex``: the packed layout in ONE (TABLE+1, 2C) i32 plane,
+  each row [C packed coordinates | C ids' f32 bits].
 
 Ids ride in the f32 planes as float VALUES (exact below 2^24; capacity is
-capped at 2^22), never as bitcast int32 bits.
+capped at 2^22); the fused plane holds the bits of those f32 values in an
+int32 plane, where no float arithmetic touches them.
 """
 
 from __future__ import annotations
@@ -139,6 +142,32 @@ class PackedGridIndex(NamedTuple):
         return self.pxyz.shape[1]
 
 
+class FusedGridIndex(NamedTuple):
+    """PackedGridIndex with coordinates and ids in ONE (TABLE+1, 2C) i32
+    plane: row [:C] the packed lattice coordinates (-1 empty), row [C:] the
+    f32-valued ids' bits (+inf bits empty). ``pxyz`` and ``pid`` are views
+    of the PackedGridIndex planes."""
+    plane: torch.Tensor       # (TABLE+1, 2C) int32
+    cell_size: torch.Tensor
+    counts: torch.Tensor
+
+    @property
+    def table_size(self) -> int:
+        return self.plane.shape[0] - 1
+
+    @property
+    def max_per_cell(self) -> int:
+        return self.plane.shape[1] // 2
+
+    @property
+    def pxyz(self) -> torch.Tensor:
+        return self.plane[:, :self.max_per_cell]
+
+    @property
+    def pid(self) -> torch.Tensor:
+        return self.plane[:, self.max_per_cell:].view(torch.float32)
+
+
 def _lattice_quantum(cell_size: torch.Tensor) -> torch.Tensor:
     return cell_size / _Q_PER_CELL
 
@@ -220,10 +249,48 @@ def build_packed_grid_index(points: torch.Tensor, n_points, cell_size,
     return PackedGridIndex(pxyz, pid, cs, counts)
 
 
+def _fused_dst(dst: torch.Tensor, c: int, table_size: int):
+    """A _slot_plan flat slot (bucket*c + rank) in the fused plane's flat
+    coordinates: the coordinates at bucket*2c + rank, the id at +c. Parked
+    slots move to (table_size+1)*2c, one past the plane, where
+    _scatter_drop discards them."""
+    parked = dst >= (table_size + 1) * c
+    coord = (dst // c) * (2 * c) + dst % c
+    oob = (table_size + 1) * (2 * c)
+    return (torch.where(parked, oob, coord),
+            torch.where(parked, oob, coord + c))
+
+
+def _id_bits(ids: torch.Tensor) -> torch.Tensor:
+    """Integer ids -> the int32 bits of their f32 values."""
+    return ids.float().contiguous().view(torch.int32)
+
+
+def build_fused_grid_index(points: torch.Tensor, n_points, cell_size,
+                           table_size: int = 1 << 16,
+                           max_per_cell: int = 96) -> FusedGridIndex:
+    """build_packed_grid_index with the one-plane fused layout."""
+    dev = points.device
+    cs = _as_cell_size(cell_size, dev)
+    c = max_per_cell
+    h, valid = _index_hash(points, n_points, cs, table_size)
+    order, dst = _slot_plan(h, table_size, c)
+    dst_c, dst_i = _fused_dst(dst, c, table_size)
+    empty = torch.cat([
+        torch.full((table_size + 1, c), -1, dtype=torch.int32, device=dev),
+        torch.full((table_size + 1, c), _INF_BITS, dtype=torch.int32,
+                   device=dev)], dim=1)
+    plane = _scatter_drop(empty, dst_c, _pack_lattice(points, cs)[order])
+    plane = _scatter_drop(plane, dst_i, _id_bits(order))
+    counts = _add_counts(torch.zeros(table_size + 1, dtype=torch.long,
+                                     device=dev), h, valid, table_size)
+    return FusedGridIndex(plane, cs, counts)
+
+
 def insert_grid_index(index, points: torch.Tensor, ids: torch.Tensor,
                       valid: torch.Tensor):
     """Append a batch of NEW points (every id larger than any id already in
-    the table) to either layout. Bit-identical to a rebuild over the union:
+    the table) to any layout. Bit-identical to a rebuild over the union:
     the build's stable sort puts higher ids after lower ones within a
     bucket, which is where slot = counts[bucket] + rank puts them."""
     table_size, c = index.table_size, index.max_per_cell
@@ -231,6 +298,12 @@ def insert_grid_index(index, points: torch.Tensor, ids: torch.Tensor,
     h = torch.where(valid, h, table_size)
     order, dst = _slot_plan(h, table_size, c, base_counts=index.counts)
     counts = _add_counts(index.counts, h, valid, table_size)
+    if isinstance(index, FusedGridIndex):
+        dst_c, dst_i = _fused_dst(dst, c, table_size)
+        plane = _scatter_drop(index.plane, dst_c,
+                              _pack_lattice(points, index.cell_size)[order])
+        plane = _scatter_drop(plane, dst_i, _id_bits(ids[order]))
+        return FusedGridIndex(plane, index.cell_size, counts)
     pid = _scatter_drop(index.pid, dst, ids[order].float())
     if isinstance(index, PackedGridIndex):
         pxyz = _scatter_drop(index.pxyz, dst,
@@ -272,7 +345,7 @@ def grid_knn(index, queries: torch.Tensor, k: int = 8):
     hs = _hash_cells(probe_cells, table_size)                 # (Q,27)
     probe_ok = _dedup_probes(hs)
 
-    if isinstance(index, PackedGridIndex):
+    if isinstance(index, (PackedGridIndex, FusedGridIndex)):
         x, y, z = _unpack_lattice(index.pxyz[hs])            # (Q,27,C)
         qm = _query_lattice(q, index.cell_size)
         dx = _wrap_diff(x - qm[:, None, None, 0])
@@ -289,7 +362,7 @@ def grid_knn(index, queries: torch.Tensor, k: int = 8):
 
     dists, pos = torch.topk(d2, k, dim=1, largest=False, sorted=True)
     win_h = torch.gather(hs, 1, pos // c)
-    win_ids = index.pid.reshape(-1)[win_h * c + pos % c]
+    win_ids = index.pid[win_h, pos % c]
     valid = torch.isfinite(dists)
     idx = torch.where(valid, win_ids, 0.0).long()
     return dists, idx, valid
@@ -399,42 +472,65 @@ def _lane_mask(pc: int) -> int:
 
 def ray_topk_reference(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
                        q: torch.Tensor, k: int, lane_mask: int):
-    """Plain PyTorch version of the ray top-k kernel (both layouts).
+    """Plain PyTorch version of the ray top-k kernels (all three layouts).
 
-    probes (R, P) int32 bucket ids; planes (pxyz i32, pid f32) for the
-    packed layout or (px, py, pz, pid) f32 for the f32 planes, each
-    (TABLE+1, C); q (R, ns, 3) f32, continuous lattice coordinates for the
-    packed layout and metric for the planes. Returns keys (R, ns*k) int32
+    probes (R, P) int32 bucket ids; ``planes`` is (plane,) for the fused
+    layout, one (TABLE+1, 2C) i32 plane; (pxyz i32, pid f32) for the packed
+    layout; or (px, py, pz, pid) f32 for the f32 planes, each (TABLE+1, C).
+    q (R, ns, 3) f32, continuous lattice coordinates for the fused and
+    packed layouts and metric for the planes. Returns keys (R, ns*k) int32
     (f32 d^2 bits with the low bits replaced by the lane) and ids
     (R, ns*k) f32 (the winner's id-plane value; 0 past the lanes).
+
+    The fused layout's lanes are p*2C + slot over whole rows: the id lanes
+    get d^2 = +inf, so they never beat a finite candidate but do compete,
+    by lane number, with empty coordinate lanes. A winner's id is the bits
+    at lane win + C, or 0 past the lanes: for an id-lane winner that is
+    the next probe's coordinate bits, as the TPU kernel's masked sum reads.
     """
     r, p = probes.shape
-    c = planes[0].shape[1]
-    pc = p * c
     ns = q.shape[1]
     rows = probes.long()
-    if len(planes) == 2:
-        x, y, z = _unpack_lattice(planes[0][rows].reshape(r, 1, pc))
-        diff = lambda a, b: _wrap_diff(a - b)
-    else:
+    fused = len(planes) == 1
+    c = planes[0].shape[1] // (2 if fused else 1)
+    pc = p * planes[0].shape[1]                 # lanes: P * row width
+    if len(planes) == 4:
         x, y, z = (pl[rows].reshape(r, 1, pc) for pl in planes[:3])
         diff = lambda a, b: a - b
+    else:
+        v = planes[0][rows].reshape(r, 1, pc)
+        x, y, z = _unpack_lattice(v)
+        diff = lambda a, b: _wrap_diff(a - b)
     dx = diff(x, q[:, :, 0:1])
     dy = diff(y, q[:, :, 1:2])
     dz = diff(z, q[:, :, 2:3])
     d2 = dx * dx + dy * dy + dz * dz                         # (R,ns,PC)
     lane = torch.arange(pc, dtype=torch.int32, device=q.device)
+    if fused:                                   # id lanes never get a d^2
+        d2 = torch.where(lane % (2 * c) < c, d2, torch.inf)
     keys = (d2.view(torch.int32) & ~lane_mask) | lane
     top = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
     win = top & lane_mask
-    ci = planes[-1][rows].reshape(r, 1, pc).expand(r, ns, pc)
-    ids = torch.gather(ci, 2, torch.clamp(win, max=pc - 1).long())
-    ids = torch.where(win < pc, ids, 0.0)
+    # the id lane: win + C of the fused rows (bits), win of the id plane
+    src, at = ((v, win + c) if fused
+               else (planes[-1][rows].reshape(r, 1, pc), win))
+    ids = torch.gather(src.expand(r, ns, pc), 2,
+                       torch.clamp(at, max=pc - 1).long())
+    ids = torch.where(at < pc, ids, 0)
+    if fused:
+        ids = ids.view(torch.float32)
     return top.reshape(r, ns * k), ids.reshape(r, ns * k)
 
 
 # Launches of each CUDA kernel, counted by ray_topk where it launches one.
-LAUNCHES = {"ray_topk_packed": 0, "ray_topk_planes": 0}
+LAUNCHES = {"ray_topk_packed": 0, "ray_topk_planes": 0, "ray_topk_fused": 0}
+
+_LAYOUTS = {  # number of planes -> (kernel, dtypes of probes, *planes, q)
+    1: ("ray_topk_fused", [torch.int32, torch.int32, torch.float32]),
+    2: ("ray_topk_packed",
+        [torch.int32, torch.int32, torch.float32, torch.float32]),
+    4: ("ray_topk_planes", [torch.int32] + [torch.float32] * 5),
+}
 
 
 def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
@@ -443,9 +539,10 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     tensors, ``ray_topk_reference`` for CPU tensors. Same signature and
     outputs as ``ray_topk_reference``.
 
-    Replaces point_slam_tpu/ops/knn.py::_ray_topk_kernel_packed (packed
-    layout) and ::_ray_topk_kernel (f32 planes). On the H100 the kernel is
-    bound by reading each ray's candidates: P*C slots of 8 bytes (packed:
+    Replaces point_slam_tpu/ops/knn.py::_ray_topk_kernel_fused (fused
+    layout), ::_ray_topk_kernel_packed (packed layout) and
+    ::_ray_topk_kernel (f32 planes). On the H100 the kernel is bound by
+    reading each ray's probe rows: P*C slots of 8 bytes (fused and packed:
     coords + ids) or 16 bytes (planes), ~13.8 KB a ray at P=27, C=64, plus
     ns*P*C key computations. The kernel reads the probe rows itself (the
     (R, P*C) candidate block is never materialised), reads ids only for the
@@ -457,17 +554,18 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     if q.device.type != "cuda":
         raise RuntimeError(f"ray_topk: unsupported device {q.device}")
     from point_slam_tpu_torch.ops import _build
-    packed = len(planes) == 2
+    if len(planes) not in _LAYOUTS:
+        raise ValueError(f"ray_topk: {len(planes)} planes; expected 1 "
+                         "(fused), 2 (packed) or 4 (f32 planes)")
+    name, want = _LAYOUTS[len(planes)]
     r, p = probes.shape
-    c = planes[0].shape[1]
+    c = planes[0].shape[1] // (2 if name == "ray_topk_fused" else 1)
     ns = q.shape[1]
     tensors = (probes, *planes, q)
     for t in tensors:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("ray_topk: inputs must be contiguous tensors on "
                              "one CUDA device")
-    want = ([torch.int32, torch.int32, torch.float32, torch.float32] if packed
-            else [torch.int32] + [torch.float32] * 5)
     if [t.dtype for t in tensors] != want:
         raise ValueError(f"ray_topk: dtypes {[t.dtype for t in tensors]}, "
                          f"expected {want}")
@@ -481,23 +579,17 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [t.data_ptr() for t in tensors]
-    if packed:
-        err = lib.ray_topk_packed(*ptrs, keys.data_ptr(), ids.data_ptr(),
-                                  r, p, c, ns, k, lane_mask, stream)
-        name = "ray_topk_packed"
-    else:
-        err = lib.ray_topk_planes(*ptrs, keys.data_ptr(), ids.data_ptr(),
-                                  r, p, c, ns, k, lane_mask, stream)
-        name = "ray_topk_planes"
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({_build.error_string(err)})")
+    err = getattr(lib, name)(*ptrs, keys.data_ptr(), ids.data_ptr(),
+                             r, p, c, ns, k, lane_mask, stream)
+    _build.check(name, err)
     LAUNCHES[name] += 1
     return keys, ids
 
 
 def index_planes(index):
     """The planes ray_topk reads, in its argument order."""
+    if isinstance(index, FusedGridIndex):
+        return (index.plane,)
     if isinstance(index, PackedGridIndex):
         return (index.pxyz, index.pid)
     return (index.px, index.py, index.pz, index.pid)
@@ -520,16 +612,18 @@ def ray_grid_knn(index, q_rays: torch.Tensor, k: int = 8, probes: int = 0):
         r, ns, _ = q_rays.shape
         q = q_rays.float()
         c = index.max_per_cell
-        lane_mask = _lane_mask(p_ray * c)
         probe_rows, compact = _box_probes(q, index.cell_size,
                                           index.table_size, p_ray)
-        if isinstance(index, PackedGridIndex):
+        if isinstance(index, (PackedGridIndex, FusedGridIndex)):
             qk = _query_lattice(q, index.cell_size).contiguous()
             g = _lattice_quantum(index.cell_size)
             d2_scale = g * g                                 # quanta^2 -> m^2
         else:
             qk = q.contiguous()
             d2_scale = 1.0
+        # the fused rows hold 2C lanes a probe (one more lane bit)
+        lanes = 2 * c if isinstance(index, FusedGridIndex) else c
+        lane_mask = _lane_mask(p_ray * lanes)
         keys, ids = ray_topk(probe_rows, index_planes(index), qk, k,
                              lane_mask)
         valid = keys < _INF_BITS

@@ -142,9 +142,12 @@ def add_points(state: CloudState, index, rays_o, rays_d, gt_depth, gt_color,
 
 
 def build_index(state: CloudState, cell_size, table_size: int = 1 << 16,
-                max_per_cell: int = 96, packed_coords: bool = False):
-    """Cell table over the cloud: f32 planes, or lattice-packed coords."""
-    build = (knn.build_packed_grid_index if packed_coords
+                max_per_cell: int = 96, packed_coords=False):
+    """Cell table over the cloud. ``packed_coords``: False (f32 planes),
+    True (lattice-packed coords + id plane) or 'fused' (one coords|ids
+    plane)."""
+    build = (knn.build_fused_grid_index if packed_coords == "fused"
+             else knn.build_packed_grid_index if packed_coords
              else knn.build_grid_index)
     return build(state.pos, state.n_points, cell_size, table_size,
                  max_per_cell)
@@ -157,6 +160,49 @@ def insert_index(state: CloudState, index, n_old, m: int):
     ids = n_old + torch.arange(m, device=state.packed.device)
     rows = state.pos[torch.clamp(ids, max=state.packed.shape[0] - 1)]
     return knn.insert_grid_index(index, rows, ids, ids < state.n_points)
+
+
+def sample_near_pcl(index, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                    near, far, r_query: torch.Tensor, num: int = 5,
+                    intervals: int = 25):
+    """Depth-free rays: march ``intervals`` coarse samples from ``near`` to
+    ``far``, keep rays with >= 2 samples near the cloud, and place ``num``
+    z-values between the first two such samples (the segment ends at the
+    SECOND near sample, not the last, as in the JAX package and the
+    reference). ``far`` and ``r_query`` (per ray or scalar) may be tensors.
+
+    Returns (z_vals (R, num), invalid (R,) True where not near the cloud).
+    """
+    r = rays_o.shape[0]
+    dev = rays_o.device
+    with torch.no_grad():
+        z_sec = _linspace(near, far, intervals, dev)              # (I,)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_sec[None, :, None]
+        d, _, v = knn.grid_knn(index, pts.reshape(-1, 3), k=8)
+        rq = torch.as_tensor(r_query, dtype=torch.float32, device=dev)
+        if rq.dim() == 1 and rq.shape[0] == r:
+            rq = rq.repeat_interleave(intervals)                  # per ray
+        has = knn.neighbor_count(d, v, rq).reshape(r, intervals) > 0
+        invalid = has.sum(dim=1) < 2
+        # near samples first, in order
+        order = torch.sort((~has).to(torch.uint8), dim=1, stable=True).indices
+        first = z_sec[order[:, 0]]
+        second = z_sec[order[:, 1]]
+        t = torch.linspace(0.0, 1.0, num, device=dev)
+        z_near = first[:, None] * (1 - t)[None, :] + second[:, None] * t[None, :]
+        z_uniform = _linspace(near, far, num, dev).expand(r, num)
+        z_vals = torch.where(invalid[:, None], z_uniform, z_near)
+    return z_vals.float(), invalid
+
+
+def _linspace(start, stop, n: int, device) -> torch.Tensor:
+    """jnp.linspace(start, stop, n) in f32 for scalar or 0-dim tensor
+    endpoints, with its rounding: start*(1 - i/(n-1)) + stop*(i/(n-1)),
+    and exactly ``stop`` last."""
+    start = torch.as_tensor(start, dtype=torch.float32, device=device)
+    stop = torch.as_tensor(stop, dtype=torch.float32, device=device)
+    step = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
+    return torch.cat([start * (1 - step) + stop * step, stop.reshape(1)])
 
 
 def frustum_mask(pos: torch.Tensor, n_points, w2c: torch.Tensor,

@@ -1,10 +1,13 @@
 """Depth-guided volumetric renderer.
 
 The port of ``point_slam_tpu.renderer``: z-value placement around the
-sensor depth, ONE kNN over all ray samples shared by both decoders, feature
-interpolation, the geometry and colour MLPs, occupancy masking of samples
-without neighbours, and normalised alpha compositing. Rays carry a validity
-mask instead of being filtered; the losses are masked sums.
+sensor depth (or, for depth-free rays with ``sample_near_pcl``, between the
+first two coarse samples near the cloud), ONE kNN over all ray samples
+shared by both decoders, feature interpolation, the geometry and colour
+MLPs (with the exposure affine under ``encode_exposure``), occupancy
+masking of samples without neighbours, and normalised alpha compositing.
+Rays carry a validity mask instead of being filtered; the losses are
+masked sums.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ class RenderConfig(NamedTuple):
     near_end: float = 0.3
     near_end_surface: float = 0.98
     far_end_surface: float = 1.02
+    sample_near_pcl: bool = False
     sigmoid_coef: float = 0.1
     weighting: str = "distance"
     min_nn_num: int = 2
     nn_num: int = 8
     encode_rel_pos_in_col: bool = True
+    encode_exposure: bool = False
     ray_batch: int = 3000
     # ray-shared kNN (ops/knn.ray_grid_knn, the CUDA kernel on the card)
     ray_knn: bool = False
@@ -45,10 +50,6 @@ def resolve_auto(mode, device) -> bool:
 
 def make_render_config(cfg: Dict[str, Any], sigmoid_coef: float,
                        device) -> RenderConfig:
-    if cfg["rendering"].get("sample_near_pcl"):
-        raise NotImplementedError(
-            "point_slam_tpu_torch does not implement rendering."
-            "sample_near_pcl yet")
     if cfg["model"].get("use_view_direction"):
         raise NotImplementedError(
             "point_slam_tpu_torch does not implement model.use_view_direction"
@@ -61,27 +62,50 @@ def make_render_config(cfg: Dict[str, Any], sigmoid_coef: float,
         near_end=cfg["rendering"]["near_end"],
         near_end_surface=cfg["rendering"]["near_end_surface"],
         far_end_surface=cfg["rendering"]["far_end_surface"],
+        sample_near_pcl=bool(cfg["rendering"]["sample_near_pcl"]),
         sigmoid_coef=sigmoid_coef,
         weighting=cfg["pointcloud"]["nn_weighting"],
         min_nn_num=cfg["pointcloud"]["min_nn_num"],
         nn_num=cfg["pointcloud"]["nn_num"],
         encode_rel_pos_in_col=cfg["model"]["encode_rel_pos_in_col"],
+        encode_exposure=bool(cfg["model"]["encode_exposure"]),
     )
 
 
-def build_z_vals(rc: RenderConfig, gt_depth, ray_valid):
-    """Per-ray sample depths: ns samples in [0.98 d, 1.02 d] for rays with
-    depth, uniform near_end..far otherwise (far from the masked batch
-    statistics)."""
+def build_z_vals(rc: RenderConfig, index, rays_o, rays_d, gt_depth,
+                 r_query, ray_valid):
+    """Per-ray sample depths and the near-cloud mask: ns samples in
+    [0.98 d, 1.02 d] for rays with depth; for depth-free rays, uniform
+    near_end..far (far from the masked batch statistics), or with
+    ``sample_near_pcl`` the segment between the first two coarse samples
+    near the cloud. Returns (z_vals (R, ns), near_pcl_ok (R,), False on
+    depth-free rays that pass no cloud)."""
     ns = rc.n_surface
+    r = gt_depth.shape[0]
+    dev = gt_depth.device
     depth_pos = ray_valid & (gt_depth > 0)
     far = torch.minimum(5.0 * masked_mean(gt_depth, depth_pos),
                         1.2 * masked_max(gt_depth, depth_pos))
-    t = torch.linspace(0.0, 1.0, ns, device=gt_depth.device)
+    t = torch.linspace(0.0, 1.0, ns, device=dev)
     z_surface = (rc.near_end_surface * gt_depth[:, None] * (1 - t)[None, :]
                  + rc.far_end_surface * gt_depth[:, None] * t[None, :])
-    z_zero = rc.near_end * (1 - t)[None, :] + far * t[None, :]
-    return torch.where((gt_depth > 0)[:, None], z_surface, z_zero)
+    near_pcl_ok = torch.ones(r, dtype=torch.bool, device=dev)
+    if rc.sample_near_pcl:
+        # only the depth-free rays' coarse samples are searched (the
+        # others' results would be discarded); the subset costs one
+        # device->host sync for its size
+        z_zero = torch.zeros((r, ns), device=dev)
+        sub = torch.nonzero(~(gt_depth > 0)).squeeze(1)
+        if sub.numel():
+            z_sub, invalid = pc.sample_near_pcl(
+                index, rays_o.detach()[sub], rays_d.detach()[sub],
+                rc.near_end, far, r_query[sub], num=ns)
+            z_zero[sub] = z_sub
+            near_pcl_ok[sub] = ~invalid
+    else:
+        z_zero = rc.near_end * (1 - t)[None, :] + far * t[None, :]
+    z_vals = torch.where((gt_depth > 0)[:, None], z_surface, z_zero)
+    return z_vals, near_pcl_ok
 
 
 def _knn_core(index, pts: torch.Tensor, rc: RenderConfig):
@@ -113,7 +137,8 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
                 rc: RenderConfig, stage_color: bool,
                 is_tracker: bool = False, apply_sigmoid_color: bool = True,
                 fill: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                exposure_feat: Optional[torch.Tensor] = None):
     """Render a ray batch from the (CAP, 72) packed cloud.
 
     ``fill``: the (2, 32) random-fill vectors for samples without
@@ -121,14 +146,18 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
     Returns depth (R,), uncertainty (R,), color (R,3), valid_ray (R,).
     With ``is_tracker`` the neighbour distances are recomputed
     differentiably from the neighbours' coordinates so pose gradients flow;
-    the kNN indices never carry gradients.
+    the kNN indices never carry gradients. With ``rc.encode_exposure`` the
+    colour takes the exposure affine of ``exposure_feat`` and the sigmoid,
+    or, without a latent, neither (the mapper applies each window slot's
+    own).
     """
     r = rays_o.shape[0]
     ns = rc.n_surface
     if fill is None:
         fill = draw_fill(generator, rays_o.device)
 
-    z_vals = build_z_vals(rc, gt_depth, ray_valid)
+    z_vals, near_pcl_ok = build_z_vals(rc, index, rays_o, rays_d, gt_depth,
+                                       r_query, ray_valid)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     p = pts.reshape(-1, 3)
     r_query_pts = r_query.repeat_interleave(ns)
@@ -151,6 +180,7 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
     occ = dec.geo(p, c_geo)
 
     valid_ray = torch.sum(has_neighbors.reshape(r, ns), dim=1) >= (ns // 2 + 1)
+    valid_ray = valid_ray & near_pcl_ok
 
     if stage_color:
         neigh_feats = nb[..., pc.COL_SL]
@@ -159,7 +189,11 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
                                                         neigh_feats)
         c_col = torch.sum(w[..., None] * neigh_feats, dim=1)
         c_col = D.random_fill_features(c_col, has_neighbors, fill[1])
-        rgb = dec.col(p, c_col, apply_sigmoid=apply_sigmoid_color)
+        if rc.encode_exposure and exposure_feat is not None:
+            rgb = dec.col(p, c_col, exposure_feat=exposure_feat)
+        else:
+            rgb = dec.col(p, c_col, apply_sigmoid=apply_sigmoid_color
+                          and not rc.encode_exposure)
     else:
         rgb = torch.zeros((p.shape[0], 3), device=p.device)
 
@@ -167,7 +201,8 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
     raw = torch.cat([rgb, occ[:, None]], dim=-1).reshape(r, ns, 4)
     depth, uncertainty, color, _ = raw2outputs(raw, z_vals, rays_d,
                                                coef=rc.sigmoid_coef)
-    depth = torch.where(gt_depth > 0, depth, 0.0)
+    if not rc.sample_near_pcl:
+        depth = torch.where(gt_depth > 0, depth, 0.0)
     return depth, uncertainty, color, valid_ray
 
 
@@ -175,7 +210,8 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
 def render_img(dec: D.Decoders, cloud: pc.CloudState, index, c2w, intrinsics,
                hw, rc: RenderConfig, gt_depth=None, r_query=None,
                stage_color: bool = True,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               exposure_feat: Optional[torch.Tensor] = None):
     """Full-image render in fixed-size ray chunks. Returns depth (H,W),
     uncertainty (H,W), color (H,W,3)."""
     from point_slam_tpu_torch.common.camera import rays_full_image
@@ -195,6 +231,7 @@ def render_img(dec: D.Decoders, cloud: pc.CloudState, index, c2w, intrinsics,
         sl = slice(i, i + rc.ray_batch)
         outs.append(render_rays(dec, cloud.packed, index, rays_o[sl],
                                 rays_d[sl], gt[sl], rq[sl], valid[sl], rc,
-                                stage_color, generator=generator)[:3])
+                                stage_color, generator=generator,
+                                exposure_feat=exposure_feat)[:3])
     depth, unc, col = (torch.cat(o) for o in zip(*outs))
     return depth.reshape(h, w), unc.reshape(h, w), col.reshape(h, w, 3)

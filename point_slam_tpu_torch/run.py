@@ -24,8 +24,9 @@ def main(argv=None):
     parser.add_argument("--output", type=str, default=None)
     parser.add_argument("--stop", type=lambda s: None if s == "None" else int(s),
                         default=None, help="stop after n frames")
-    parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda when available)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (default: cuda; the run fails "
+                        "without CUDA unless --device cpu is given)")
     parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--resume", action="store_true")
     args = parser.parse_args(argv)

@@ -2,9 +2,11 @@
 
 The port of ``point_slam_tpu.slam``: frame 0 is mapped with its GT pose;
 every later frame is tracked (frame 1 takes its GT pose), and every
-``every_frame``-th frame and the last one are mapped again. A prefetch
-thread reads the next frames in wire form, copies them to the device and
-computes their radius maps while the current frame runs.
+``every_frame``-th frame and the last one are mapped again; with
+``mapping.color_refine`` the sequence's last frame is mapped as the colour
+refinement. A prefetch thread reads the next frames in wire form, copies
+them to the device and computes their radius maps while the current frame
+runs. The port runs on CUDA unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -42,10 +44,6 @@ def update_cam(cfg) -> None:
         cam["cy"] -= e
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 def _repo_path(path: str) -> str:
     """Resolve a config-relative artifact path against the repository root
     when it does not exist relative to the working directory."""
@@ -58,10 +56,17 @@ def _repo_path(path: str) -> str:
 
 class PointSLAM:
     def __init__(self, cfg, input_folder: Optional[str] = None,
-                 output: Optional[str] = None, device=None):
+                 output: Optional[str] = None, device="cuda"):
+        """``device``: "cuda" (the default) or another torch device; the
+        host runs the plain PyTorch versions of the kernels only when asked
+        for with device="cpu"."""
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PointSLAM: CUDA is not available on this host; pass "
+                'device="cpu" to run on the host instead')
+        check_supported(cfg)
         update_cam(cfg)
         if output:
             cfg["data"]["output"] = output
@@ -111,7 +116,6 @@ class PointSLAM:
         t_run0 = time.perf_counter()
         cfg = self.cfg
         n = self.n_img if stop is None else min(stop + 1, self.n_img)
-        check_supported(cfg, will_refine=n == self.n_img)
         every = cfg["mapping"]["every_frame"]
         lazy = cfg["mapping"]["lazy_start"] or 0
         tm = self.timing
@@ -159,9 +163,10 @@ class PointSLAM:
             ef = 1 if (lazy and idx <= lazy) else every
 
             t0 = time.perf_counter()
-            res = self.tracker.track_frame(idx, color, depth, gt_c2w,
-                                           self.estimate_c2w_list,
-                                           self.mapper, radius[1])
+            res = self.tracker.track_frame(
+                idx, color, depth, gt_c2w, self.estimate_c2w_list,
+                self.mapper, radius[1],
+                exposure_feat=self.mapper.exposure_feat)
             t_track = time.perf_counter() - t0
             tm["track"] += t_track
             self.estimate_c2w_list[idx] = res["c2w"]
@@ -171,12 +176,17 @@ class PointSLAM:
 
             t_map = 0.0
             if idx % ef == 0 or idx == n - 1:
+                refine = (cfg["mapping"]["color_refine"] and idx == n - 1
+                          and idx == self.n_img - 1)
                 t0 = time.perf_counter()
                 st = self.mapper.map_frame(idx, color, depth, gt_c2w,
                                            self.estimate_c2w_list[idx],
+                                           color_refine=refine,
                                            radius=radius)
                 t_map = time.perf_counter() - t0
                 tm["map"] += t_map
+                # BA refines the current pose during mapping
+                self.estimate_c2w_list[idx] = st["cur_c2w"]
                 if self.verbose:
                     print(f"[map] frame {idx}: +{st['n_added']} locations, "
                           f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}, "

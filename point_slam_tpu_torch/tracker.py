@@ -1,9 +1,11 @@
 """Tracker: per-frame camera pose optimisation.
 
 The port of ``point_slam_tpu.tracker``: a Python loop over autograd in
-place of the JAX while_loop. Each iteration samples pixels, renders them
-with neighbour distances differentiable in the pose, takes the robust depth
-(and colour) L1 loss and steps Adam on the (w,x,y,z) quaternion and the
+place of the JAX while_loop. Each iteration samples pixels (uniformly in
+the edge-cropped image, or with ``sample_with_color_grad`` from the frame's
+top-gradient pool), renders them with neighbour distances differentiable in
+the pose (and the current exposure latent), takes the robust depth (and
+colour) L1 loss and steps Adam on the (w,x,y,z) quaternion and the
 translation. The loop keeps the minimum-loss candidate on the device (no
 host sync per iteration): with separate_LR it stores the pre-step camera,
 otherwise the post-step one, and the quaternion gets 0.2x the learning
@@ -38,6 +40,8 @@ class TrackerStatic(NamedTuple):
     use_color: bool
     w_color_loss: float
     separate_lr: bool
+    sample_with_color_grad: bool = False
+    grad_top: int = 0     # size of the top-gradient candidate pool
 
 
 def sample_pixels(ts: TrackerStatic, generator: torch.Generator, device):
@@ -47,17 +51,44 @@ def sample_pixels(ts: TrackerStatic, generator: torch.Generator, device):
         ts.w - ts.ignore_edge_w, ts.pixels, generator, device)
 
 
+def candidate_pool(ts: TrackerStatic, gt_color, gt_depth):
+    """The frame's colour-gradient candidate pool: the grad_top
+    highest-gradient pixels, valid inside the edge crop with depth > 0
+    (and <= 5 m with depth_limit). Returns (flat idx, ok)."""
+    grad = image.color_gradient_magnitude(gt_color)
+    return sampling.top_gradient_candidates(
+        grad, ts.ignore_edge_h, ts.h - ts.ignore_edge_h, ts.ignore_edge_w,
+        ts.w - ts.ignore_edge_w, ts.grad_top, depth=gt_depth,
+        depth_limit=5.0 if ts.depth_limit else None)
+
+
+def sample_pool_pixels(ts: TrackerStatic, cand_idx, cand_ok,
+                       generator: Optional[torch.Generator] = None,
+                       scores: Optional[torch.Tensor] = None):
+    """``pixels`` distinct picks from the candidate pool (``scores``:
+    optional uniform draws over the pool). Returns (i, j, ok)."""
+    pos, ok = sampling.choose_without_replacement(cand_ok, ts.pixels,
+                                                  generator, scores)
+    i, j = sampling.flat_to_ij(cand_idx[pos], ts.w)
+    return i, j, ok
+
+
 def tracking_loss(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
                   gt_color, gt_depth, r_query_map, cam: torch.Tensor,
-                  i: torch.Tensor, j: torch.Tensor, fill: torch.Tensor):
+                  i: torch.Tensor, j: torch.Tensor, fill: torch.Tensor,
+                  pix_ok: Optional[torch.Tensor] = None,
+                  exposure_feat: Optional[torch.Tensor] = None):
     """Robust tracking loss of the 7-vector camera ``cam`` at pixels (i, j)
-    with the (2, 32) random-fill vectors ``fill``. Returns
-    (loss, geo_loss, color_loss, n_mask)."""
+    (``pix_ok``: which picks are valid, all by default) with the (2, 32)
+    random-fill vectors ``fill`` and the exposure latent ``exposure_feat``.
+    Returns (loss, geo_loss, color_loss, n_mask)."""
     c2w = camera.pose_matrix_from_tensor(cam)
     dep = sampling.gather_pixels(gt_depth, i, j)
     col = sampling.gather_pixels(gt_color, i, j)
     rq = sampling.gather_pixels(r_query_map, i, j)
     valid = dep > 0
+    if pix_ok is not None:
+        valid &= pix_ok
     if ts.depth_limit:
         valid &= dep < 5.0
     rays_o, rays_d = camera.rays_from_uv(i, j, c2w, ts.fx, ts.fy, ts.cx, ts.cy)
@@ -67,7 +98,8 @@ def tracking_loss(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
 
     depth, uncertainty, color, _ = R.render_rays(
         dec, packed, index, rays_o, rays_d, dep, rq, valid, rc,
-        stage_color=True, is_tracker=True, fill=fill)
+        stage_color=True, is_tracker=True, fill=fill,
+        exposure_feat=exposure_feat)
     uncertainty = uncertainty.detach()
     nan_ok = ~(torch.isnan(depth) | torch.isnan(uncertainty))
     tmp = torch.abs(dep - depth) / torch.sqrt(uncertainty + 1e-10)
@@ -87,12 +119,15 @@ def tracking_loss(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
 def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
                    gt_color, gt_depth, r_query_map, cam_init: torch.Tensor,
                    lr: float, n_iters: int,
-                   generator: Optional[torch.Generator] = None, draws=None):
+                   generator: Optional[torch.Generator] = None, draws=None,
+                   pool=None, exposure_feat: Optional[torch.Tensor] = None):
     """Optimise the camera for one frame.
 
-    ``draws``: optional per-iteration list of (i, j, fill); drawn from
-    ``generator`` otherwise. Returns (best_cam (7,), final_cam (7,),
-    first_loss, best_loss) as device tensors.
+    ``pool``: the (cand_idx, cand_ok) candidate pool, with
+    ``ts.sample_with_color_grad``. ``draws``: optional per-iteration list
+    of (i, j, fill), or of (scores over the pool, fill) when sampling from
+    the pool; drawn from ``generator`` otherwise. Returns (best_cam (7,),
+    final_cam (7,), first_loss, best_loss) as device tensors.
     """
     dev = cam_init.device
     quad = cam_init[:4].clone().requires_grad_(True)
@@ -103,14 +138,20 @@ def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
     first_loss = torch.zeros((), device=dev)
     lr_q = lr * 0.2 if ts.separate_lr else lr
     for it in range(n_iters):
-        if draws is not None:
+        ok = fill = None
+        if ts.sample_with_color_grad:
+            scores, fill = draws[it] if draws is not None else (None, None)
+            i, j, ok = sample_pool_pixels(ts, *pool, generator, scores)
+        elif draws is not None:
             i, j, fill = draws[it]
         else:
             i, j = sample_pixels(ts, generator, dev)
+        if fill is None:
             fill = R.draw_fill(generator, dev)
         cam = torch.cat([quad, trans])
         loss = tracking_loss(ts, rc, dec, packed, index, gt_color, gt_depth,
-                             r_query_map, cam, i, j, fill)[0]
+                             r_query_map, cam, i, j, fill, ok,
+                             exposure_feat)[0]
         g_q, g_t = torch.autograd.grad(loss, [quad, trans])
         with torch.no_grad():
             cam_vec = cam.detach()
@@ -142,17 +183,15 @@ class Tracker:
             raise NotImplementedError(
                 "point_slam_tpu_torch does not implement tracking.vis_inside"
                 " yet")
-        if tr.get("sample_with_color_grad"):
-            raise NotImplementedError(
-                "point_slam_tpu_torch does not implement tracking."
-                "sample_with_color_grad yet")
         self.ts = TrackerStatic(
             h=cam["H"], w=cam["W"], fx=cam["fx"], fy=cam["fy"],
             cx=cam["cx"], cy=cam["cy"], pixels=tr["pixels"],
             ignore_edge_w=tr["ignore_edge_W"], ignore_edge_h=tr["ignore_edge_H"],
             handle_dynamic=tr["handle_dynamic"], depth_limit=tr["depth_limit"],
             use_color=tr["use_color_in_tracking"],
-            w_color_loss=tr["w_color_loss"], separate_lr=tr["separate_LR"])
+            w_color_loss=tr["w_color_loss"], separate_lr=tr["separate_LR"],
+            sample_with_color_grad=bool(tr["sample_with_color_grad"]),
+            grad_top=min(15 * tr["pixels"], cam["H"] * cam["W"]))
         self.rc = R.make_render_config(
             cfg, cfg["rendering"]["sigmoid_coef_tracker"], self.device)
         self.lr = tr["lr"]
@@ -180,18 +219,28 @@ class Tracker:
         return cam
 
     def track_frame(self, idx: int, gt_color, gt_depth, gt_c2w,
-                    estimate_c2w_list, mapper, r_query_map) -> Dict[str, Any]:
+                    estimate_c2w_list, mapper, r_query_map,
+                    exposure_feat=None) -> Dict[str, Any]:
         """Track one frame against the current map; frames 0 and 1 take the
-        GT pose. Returns a dict with c2w (4,4) numpy."""
+        GT pose. ``exposure_feat``: the mapper's current exposure latent
+        (numpy), used with ``model.encode_exposure``. Returns a dict with
+        c2w (4,4) numpy."""
         if idx <= 1 or self.gt_camera:
             return {"c2w": np.asarray(gt_c2w, np.float32), "tracked": False}
         cam_init = torch.as_tensor(
             self.initial_pose(idx, estimate_c2w_list, gt_c2w),
             device=self.device)
+        pool = (candidate_pool(self.ts, gt_color, gt_depth)
+                if self.ts.sample_with_color_grad else None)
+        exp = (torch.as_tensor(np.asarray(exposure_feat, np.float32),
+                               device=self.device)
+               if exposure_feat is not None and self.rc.encode_exposure
+               else None)
         best_cam, _, first_loss, best_loss = track_optimize(
             self.ts, self.rc, mapper.decoders, mapper.cloud.packed,
             mapper.index, gt_color, gt_depth, r_query_map, cam_init,
-            self.lr, self.iters, generator=self.generator)
+            self.lr, self.iters, generator=self.generator, pool=pool,
+            exposure_feat=exp)
         # one host fetch per frame
         vals = torch.cat([camera.pose_matrix_from_tensor(best_cam).reshape(-1),
                           first_loss[None], best_loss[None]]).cpu().numpy()

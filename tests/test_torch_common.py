@@ -56,6 +56,22 @@ def test_tensor_from_pose_matrix_is_the_same_host_code():
                 c2w)))), c2w[:3], atol=1e-5)
 
 
+def test_host_pose_helpers_match_jax():
+    """pose_matrix_from_tensor_np (BA's write-back) and the t-first
+    7-vector, as the JAX package's host helpers."""
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        cam = rng.normal(size=7).astype(np.float32)
+        got = tcam.pose_matrix_from_tensor_np(cam)
+        assert got.dtype == np.float32 and got.shape == (4, 4)
+        np.testing.assert_allclose(got, jcam.pose_matrix_from_tensor_np(cam),
+                                   rtol=1e-6, atol=1e-6)
+        c2w = _rand_pose(rng)
+        np.testing.assert_array_equal(
+            tcam.tensor_from_pose_matrix(c2w, t_first=True),
+            jcam.tensor_from_pose_matrix(c2w, t_first=True))
+
+
 def test_rays_match_jax():
     rng = np.random.default_rng(2)
     c2w = _rand_pose(rng)

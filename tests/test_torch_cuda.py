@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA ray top-k kernels against their plain
-PyTorch versions, and the CUDA path of ray_grid_knn against the CPU path.
+"""The port on the card: the CUDA ray top-k kernels (K1-K3) and the fused
+row-Adam (K4) against their plain PyTorch versions, and the CUDA path of
+ray_grid_knn against the CPU path.
 
 These need an NVIDIA GPU and nvcc and skip elsewhere. The file imports
 neither JAX nor tests/conftest.py's helpers, so on a card without JAX run
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from point_slam_tpu_torch.ops import adam as tadam
 from point_slam_tpu_torch.ops import knn as tk
 
 
@@ -38,32 +40,78 @@ def ray_cloud(seed, n_pts=20000, cap=1 << 15, n_rays=1500, ns=5):
     return torch.from_numpy(pts), n_pts, torch.from_numpy(q)
 
 
-BUILD = {True: tk.build_packed_grid_index, False: tk.build_grid_index}
+BUILD = {True: tk.build_packed_grid_index, False: tk.build_grid_index,
+         "fused": tk.build_fused_grid_index}
+NAME = {True: "ray_topk_packed", False: "ray_topk_planes",
+        "fused": "ray_topk_fused"}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("packed", [True, False], ids=["K1", "K2"])
-def test_ray_topk_kernel_equals_plain_on_cuda(packed):
-    """Keys and ids EQUAL (tolerance 0), and the launch is counted."""
+@pytest.mark.parametrize("packed", [True, False, "fused"],
+                         ids=["K1", "K2", "K3"])
+@pytest.mark.parametrize("n_pts", [20000, 300], ids=["dense", "sparse"])
+def test_ray_topk_kernel_equals_plain_on_cuda(packed, n_pts):
+    """Keys and ids EQUAL (tolerance 0; ids as int32 bit patterns, since
+    K3's winners past the finite candidates read coordinate bits), and the
+    launch is counted. The sparse cloud leaves most samples with fewer than
+    k candidates."""
     dev = cuda_or_skip()
-    pts, n_pts, q = ray_cloud(8)
+    pts, n_pts, q = ray_cloud(8, n_pts=n_pts)
     index = BUILD[packed](pts.to(dev), n_pts, 0.16, 1 << 14, 64)
     q = q.to(dev)
     probes, _ = tk._box_probes(q, 0.16, index.table_size, 27)
-    qk = (tk._query_lattice(q, index.cell_size) if packed else q).contiguous()
-    name = "ray_topk_packed" if packed else "ray_topk_planes"
+    qk = (q if packed is False
+          else tk._query_lattice(q, index.cell_size)).contiguous()
+    lane_mask = 4095 if packed == "fused" else 2047
+    name = NAME[packed]
     before = tk.LAUNCHES[name]
-    keys, ids = tk.ray_topk(probes, tk.index_planes(index), qk, 8, 2047)
+    keys, ids = tk.ray_topk(probes, tk.index_planes(index), qk, 8, lane_mask)
     rkeys, rids = tk.ray_topk_reference(probes, tk.index_planes(index), qk,
-                                        8, 2047)
+                                        8, lane_mask)
     torch.cuda.synchronize()
     assert tk.LAUNCHES[name] == before + 1
-    assert torch.equal(keys, rkeys) and torch.equal(ids, rids)
-    assert (keys < 0x7F800000).float().mean() > 0.9
+    assert torch.equal(keys, rkeys)
+    assert torch.equal(ids.view(torch.int32), rids.view(torch.int32))
+    valid = (keys < 0x7F800000).float().mean()
+    assert valid > 0.9 if n_pts == 20000 else valid < 0.9
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("packed", [True, False], ids=["K1", "K2"])
+def test_row_adam_kernel_equals_plain_on_cuda():
+    """p, m and v EQUAL to update_rows_reference (0 ulp), in place, with a
+    per-row mask and per-column step counts and learning rates."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(11)
+    n, w = 1 << 15, 72
+    p, g, m = (torch.from_numpy(rng.standard_normal((n, w)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    v = torch.from_numpy(np.abs(rng.standard_normal((n, w))).astype(
+        np.float32)).to(dev) * 0.01
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(dev).float()
+    t_row = torch.from_numpy(rng.integers(1, 40, w).astype(np.float32)).to(dev)
+    lr_row = torch.from_numpy(rng.uniform(1e-4, 3e-2, w).astype(
+        np.float32)).to(dev)
+    want_p, want = tadam.update_rows_reference(p, g, {"m": m, "v": v}, t_row,
+                                               lr_row, mask)
+    before = tadam.LAUNCHES["row_adam"]
+    buf = {"m": m.clone(), "v": v.clone()}
+    got_p, got = tadam.update_rows(p.clone(), g, buf, t_row, lr_row, mask)
+    torch.cuda.synchronize()
+    assert tadam.LAUNCHES["row_adam"] == before + 1
+    assert got["m"] is buf["m"]                # in place
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got["m"], want["m"]) and torch.equal(got["v"],
+                                                            want["v"])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tadam.update_rows(p[:, :70].contiguous(), g[:, :70].contiguous(),
+                          {"m": m[:, :70].contiguous(),
+                           "v": v[:, :70].contiguous()}, t_row[:70],
+                          lr_row[:70], mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False, "fused"],
+                         ids=["K1", "K2", "K3"])
 def test_ray_grid_knn_on_cuda_equals_the_cpu_path(packed):
     """The same cloud indexed and queried on the card (kernel) and on the
     CPU (plain version) gives the same index and the same neighbours."""

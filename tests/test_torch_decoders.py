@@ -151,10 +151,23 @@ def test_random_fill_uses_one_shared_vector():
 
 
 def test_out_of_slice_options_raise():
-    _, tcfg = tiny_cfgs()
+    """use_view_direction stays refused; the exposure MLP (encode_exposure)
+    is carried, with the JAX tree's names, shapes and orientation."""
+    jcfg, tcfg = tiny_cfgs()
+    jcfg["model"]["encode_exposure"] = True
     tcfg["model"]["encode_exposure"] = True
-    with pytest.raises(NotImplementedError, match="encode_exposure"):
-        TD.init_decoders(tcfg, 0)
+    params = JD.init_decoders(jax.random.key(0), jcfg)
+    jexp = params["col"]["mlp_exposure"]
+    own = TD.init_decoders(tcfg, 0).col.mlp_exposure
+    carried = interop.decoders_from_numpy(to_numpy(params), tcfg)
+    for k in ("l1", "l2"):
+        assert tuple(own[k].weight.shape) == jexp[k]["w"].shape[::-1]
+        np.testing.assert_array_equal(n(carried.col.mlp_exposure[k].weight),
+                                      np.asarray(jexp[k]["w"]).T)
+        np.testing.assert_array_equal(n(carried.col.mlp_exposure[k].bias),
+                                      np.asarray(jexp[k]["b"]))
+    # the N(0, 0.01) weight init of the JAX package
+    assert 0.005 < float(own["l1"].weight.detach().std()) < 0.02
     tcfg["model"]["encode_exposure"] = False
     tcfg["model"]["use_view_direction"] = True
     with pytest.raises(NotImplementedError, match="use_view_direction"):

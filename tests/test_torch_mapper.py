@@ -153,7 +153,7 @@ def test_map_optimize_group_semantics(setup):
     frustum = torch.arange(packed0.shape[0]) < npts
     frustum[: npts // 2] = False
     lr_geo, lr_col = [0.001, 0.03, 0.0], [0.005, 0.005, 0.005]
-    packed, stats = TM.map_optimize(
+    packed, stats, _, _ = TM.map_optimize(
         tms, TR.RenderConfig(), dec, packed0, scene.tindex,
         (t(color), t(depth), t(rq), t(c2w)), 2, 200, frustum, lr_geo, lr_col,
         1.0, 0, 2, generator=torch.Generator().manual_seed(0))

@@ -1,5 +1,6 @@
 """The port as a package: it runs without JAX, reads the same config tree
-as point_slam_tpu, and raises on the paths it does not carry yet."""
+as point_slam_tpu, raises on the paths it does not carry yet, and runs on
+CUDA unless asked for the CPU."""
 
 import glob
 import os
@@ -97,21 +98,15 @@ def test_cuda_defaults_hold_only_the_slice_knobs():
     assert set(tconfig.CUDA_DEFAULTS["cuda"]) == {
         "point_capacity_init", "point_capacity_max", "grid_table_size",
         "grid_max_per_cell", "knn_probes", "ray_knn", "knn_packed_coords",
-        "keyframe_device_budget"}
+        "keyframe_device_budget", "fused_adam"}
 
 
 OUT_OF_SLICE = [
-    ({"mapping": {"BA": True}}, "bundle adjustment"),
-    ({"model": {"encode_exposure": True}}, "exposure"),
-    ({"mapping": {"color_refine": True}}, "colour refinement"),
     ({"mapping": {"vis_inside": True}}, "vis_inside"),
     ({"tracking": {"vis_inside": True}}, "vis_inside"),
-    ({"rendering": {"sample_near_pcl": True}}, "sample_near_pcl"),
     ({"wandb": True}, "metrics sink"),
     ({"cuda": {"keyframe_host_ring": True}}, "keyframe ring"),
     ({"cuda": {"data_parallel": 2}}, "data parallelism"),
-    ({"cuda": {"knn_packed_coords": "fused"}}, "fused"),
-    ({"cuda": {"fused_adam": True}}, "row-Adam"),
 ]
 
 
@@ -121,15 +116,59 @@ def test_out_of_slice_paths_raise(override, what):
     _, cfg = tiny_cfgs(4)
     tconfig.update_recursive(cfg, override)
     with pytest.raises(NotImplementedError, match=what):
-        tconfig.check_supported(cfg, will_refine=True)
+        tconfig.check_supported(cfg)
+
+
+SENSOR_SLICE = [
+    ({"mapping": {"BA": True}}, "bundle adjustment"),
+    ({"model": {"encode_exposure": True}}, "exposure"),
+    ({"mapping": {"color_refine": True}}, "colour refinement"),
+    ({"rendering": {"sample_near_pcl": True}}, "sample_near_pcl"),
+    ({"cuda": {"knn_packed_coords": "fused"}}, "fused"),
+    ({"cuda": {"fused_adam": True}}, "row-Adam"),
+]
+
+
+@pytest.mark.parametrize("override,what", SENSOR_SLICE,
+                         ids=[w for _, w in SENSOR_SLICE])
+def test_sensor_slice_paths_pass_the_check(override, what):
+    """The paths the sensor-shaped slice carries are no longer refused."""
+    _, cfg = tiny_cfgs(4)
+    tconfig.update_recursive(cfg, override)
+    tconfig.check_supported(cfg)
 
 
 def test_the_slice_config_passes_the_check():
     _, cfg = tiny_cfgs(4)
-    tconfig.check_supported(cfg, will_refine=True)
-    # colour refinement runs only at the sequence's last frame
-    cfg["mapping"]["color_refine"] = True
-    tconfig.check_supported(cfg, will_refine=False)
+    tconfig.check_supported(cfg)
+    # room_sensor.yaml's path with the two kernels on
+    cfg = tconfig.load_config(
+        os.path.join(CONFIGS, "Synthetic", "room_sensor.yaml"),
+        os.path.join(CONFIGS, "point_slam.yaml"))
+    cfg["cuda"].update({"knn_packed_coords": "fused", "fused_adam": True})
+    tconfig.check_supported(cfg)
+
+
+def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
+                                                            tmp_path):
+    """Without CUDA, PointSLAM(cfg) and the CLI without --device raise
+    (no silent fall-back to the host); device="cpu" is the way to ask."""
+    from point_slam_tpu_torch import run
+    from point_slam_tpu_torch.slam import PointSLAM
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = tiny_cfgs(4)
+    cfg["data"]["output"] = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        PointSLAM(cfg)
+    yaml = tmp_path / "tiny.yaml"
+    yaml.write_text(
+        f"inherit_from: {os.path.join(CONFIGS, 'Synthetic', 'room.yaml')}\n"
+        "synthetic: {n_frames: 4}\ncam: {H: 48, W: 64, fx: 40.0, fy: 40.0,"
+        " cx: 31.5, cy: 23.5}\nverbose: false\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main([str(yaml), "--stop", "2", "--output",
+                  str(tmp_path / "cli")])
+    assert PointSLAM(cfg, device="cpu").device.type == "cpu"
 
 
 def test_auto_knobs_resolve_by_device():
