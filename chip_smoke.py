@@ -36,7 +36,20 @@ non-zero with no result line otherwise. In one pass it:
    iteration, depth-free pixels were present, BA moved a keyframe pose, the
    refinement ran 5 windows, poses are finite and ATE without alignment is
    below 2 cm;
-5. prints one JSON line of the kernels, the card again, and last the line
+5. phase D: the kNN selection study (point_slam_tpu_torch.profiling).
+   For each Pallas body of profiling/knn_pallas*.py, knn_layout_micro.py
+   and knn_quad_micro.py (P1-P6) it holds the block top-k kernel against
+   its plain version on the block that the body's study variant gathers,
+   in its layout (separate planes, one row of planes, component-major,
+   quad), with and without the id view, at the scripts' widths (up to
+   P*C = 4096 lanes) on the scripts' scenes and on the same scenes with
+   300 points: keys and ids EQUAL (ids as bit patterns). Prints kernel,
+   plain and bound times; then runs the study at its default sizes (every
+   variant's pipeline and kernel time and its match against per-sample
+   grid_knn), counts its block top-k launches, and checks that every body
+   ran, that the sine-sheet variants match per-sample grid_knn on >= 95% of
+   slots and that the layouts of one scene select the same neighbours;
+6. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -45,7 +58,6 @@ pretrained/middle_fine.npz; the data is the procedural synthetic room.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -58,6 +70,24 @@ RAY_BATCHES = (5000, 1500)  # mapping and tracking rays a render call
 SENSOR_ITERS_FIRST = 300
 SENSOR_ITERS = 100
 SENSOR_FRAMES = 13
+# phase D: each Pallas body of the kNN study -> (the study variant that
+# runs it, the body's file:line)
+STUDY_BODIES = {
+    "P1": ("v3", "profiling/knn_pallas.py:111"),
+    "P2": ("v4", "profiling/knn_pallas2.py:108"),
+    "P2'": ("v5", "profiling/knn_pallas2.py:238"),
+    "P3": ("v7", "profiling/knn_pallas3.py:52"),
+    "P4": ("v8", "profiling/knn_pallas4.py:18"),
+    "P5b": ("B", "profiling/knn_layout_micro.py:103"),
+    "P5c": ("C", "profiling/knn_layout_micro.py:150"),
+    "P6q": ("quad", "profiling/knn_quad_micro.py:60"),
+    "P6p": ("planes", "profiling/knn_quad_micro.py:112"),
+}
+STUDY_LAYOUT = {"P1": "planes", "P2": "row", "P2'": "row", "P3": "row",
+                "P4": "row", "P5b": "component", "P5c": "planes",
+                "P6q": "quad", "P6p": "planes"}
+STUDY_SPARSE_POINTS = 300   # most samples then have fewer than 8 candidates
+STUDY_ITERS = 10            # timed calls a study measurement
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
@@ -69,10 +99,8 @@ ADAM_FLOPS = 15             # one row-Adam element (row_adam.cu)
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from point_slam_tpu_torch.profiling.scene import card_line as line
+    return line()
 
 
 def bench_config(n_frames: int, scene: str = "room.yaml"):
@@ -129,20 +157,9 @@ def bound(n_bytes: float, n_flops: float):
 
 
 def cuda_ms(fn) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
-    import torch
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(REPEATS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return sorted(times)[len(times) // 2]
+    """Median CUDA-event time of fn() in ms (REPEATS calls after warm-up)."""
+    from point_slam_tpu_torch.profiling.scene import cuda_ms as median_ms
+    return median_ms(fn, REPEATS)
 
 
 def topk_bound(name, probes, c, ns, k):
@@ -476,6 +493,91 @@ def phase_c(dev):
             "row_adam": totals["row_adam"]}
 
 
+def phase_d(dev):
+    """The kNN selection study: the block top-k against its plain version
+    for each Pallas body of P1-P6 at the scripts' widths, on the scripts'
+    dense scenes and on the same scenes with STUDY_SPARSE_POINTS points;
+    then the study itself, whose block top-k launches are counted."""
+    import torch
+    from point_slam_tpu_torch.ops import block_topk as bt
+    from point_slam_tpu_torch.profiling import knn_study as ks
+
+    t0 = time.perf_counter()
+    dense = ks.prepare(dev)
+    sparse = ks.prepare(dev, points=STUDY_SPARSE_POINTS)
+    by_name = [{v.name: v for v in ks.variants(d)} for d in (dense, sparse)]
+    results = {}
+    for rec, (vname, _) in STUDY_BODIES.items():
+        b_dense, b_sparse = (names[vname].block() for names in by_name)
+        err, short, layouts = 0, [], []
+        for b in (b_dense, b_sparse):
+            for views in {len(b.views): b.views, 3: b.views[:3]}.values():
+                keys, ids = bt.block_topk(views, b.q, 8, b.lane_mask)
+                rkeys, rids = bt.block_topk_reference(views, b.q, 8,
+                                                      b.lane_mask)
+                torch.cuda.synchronize()
+                err = max(err, (keys.long() - rkeys.long()).abs().max()
+                          .item())
+                equal = torch.equal(keys, rkeys)
+                if ids is not None:
+                    ib, rib = ids.view(torch.int32), rids.view(torch.int32)
+                    err = max(err, (ib.long() - rib.long()).abs().max()
+                              .item())
+                    equal = equal and torch.equal(ib, rib)
+                layouts.append("ids" if ids is not None else "keys")
+                if not equal:
+                    raise AssertionError(f"block_topk differs from plain for "
+                                         f"{rec} ({layouts[-1]})")
+            short.append((keys >= 0x7F800000).float().mean().item())
+        views, q, mask = b_dense
+        r, p, c = views[0].shape
+        ns = q[0].shape[1]
+        run = lambda: bt.block_topk(views, q, 8, mask)
+        plain = lambda: bt.block_topk_reference(views, q, 8, mask)
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        with_ids = len(views) == 4
+        # coordinates once, the winners' ids, the queries, keys (and ids)
+        n_bytes = (r * 3 * p * c * 4 + r * ns * 3 * 4
+                   + r * ns * 8 * 4 * (3 if with_ids else 1))
+        b_ms, b_by = bound(n_bytes, r * ns * p * c * KEY_FLOPS)
+        print(f"[D] {rec} ({vname}, {STUDY_LAYOUT[rec]} layout, "
+              f"{'ids' if with_ids else 'keys only'}) R={r} ns={ns} P={p} "
+              f"C={c} mask {mask}: keys/ids equal to plain: True for "
+              f"{'/'.join(layouts)} on the dense and the sparse cloud (max "
+              f"abs err {err}, tolerance 0; samples short of 8 candidates "
+              f"{short[0]:.4f} dense, {short[1]:.4f} sparse); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by})", flush=True)
+        results[rec] = {"max_abs_err": float(err), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by}
+
+    # the study at its default sizes: the slice's main path
+    bt.LAUNCHES["block_topk"] = 0
+    rows = ks.run(dev, iters=STUDY_ITERS, data=dense)
+    total = bt.LAUNCHES["block_topk"]
+    print(f"[D] block_topk launches in the study: {total}; phase D wall "
+          f"{time.perf_counter() - t0:.2f} s; card {card_line()}", flush=True)
+    for rec in STUDY_BODIES:
+        results[rec]["launches"] = sum(row["launches"] for row in rows
+                                       if row["body"] == rec)
+        if results[rec]["launches"] == 0:
+            raise AssertionError(f"the study launched no block_topk for "
+                                 f"{rec}")
+    if total == 0:
+        raise AssertionError("block_topk did not run in the study")
+    match = {(row["name"], row["p"]): row["match_pct"] for row in rows}
+    sheet = [row["match_pct"] for row in rows if row["scene"] == "sine-sheet"
+             and row["body"] in STUDY_BODIES]
+    if min(sheet) < 95.0:
+        raise AssertionError(f"sine-sheet dist-set match {sheet} < 95%")
+    if not (match[("A", 36)] == match[("B", 36)] == match[("C", 36)]
+            and match[("planes", 36)] == match[("quad", 36)]
+            and match[("v7", 48)] == match[("ray_grid_knn f32", 48)]):
+        raise AssertionError(f"layouts of one scene disagree: {match}")
+    return results
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -499,7 +601,9 @@ def main():
     a = phase_a(dev)
     launches = phase_b(dev)
     launches.update(phase_c(dev))
-    print(json.dumps({"kernels": kernel_records(a, launches)}))
+    study = phase_d(dev)
+    print(json.dumps({"kernels": kernel_records(a, launches)
+                      + study_records(study)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -528,6 +632,19 @@ def kernel_records(a, launches):
             # no single PyTorch call computes any of the four functions
             "library_ms": None})
     return kernels
+
+
+def study_records(study):
+    """One record for each Pallas body of the kNN study, all launched
+    through the one block top-k kernel."""
+    return [{"name": f"block_topk {rec}", "route": "cuda",
+             "source": "point_slam_tpu_torch/ops/csrc/block_topk.cu",
+             "replaces": where, "launches": study[rec]["launches"],
+             **{key: study[rec][key] for key in
+                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+             # no single PyTorch call computes the keyed top-k with ids
+             "library_ms": None}
+            for rec, (_, where) in STUDY_BODIES.items()]
 
 
 if __name__ == "__main__":

@@ -109,8 +109,10 @@ def load_library() -> ctypes.CDLL:
         lib.ray_topk_fused.argtypes = [vp] * 5 + [i] * 6 + [vp]
         lib.row_adam.argtypes = ([vp] * 8 + [ctypes.c_long, i] + [f] * 5
                                  + [i, vp])
+        lib.block_topk.argtypes = ([vp] * 4 + [i] * 8 + [vp] * 3 + [i] * 2
+                                   + [vp] * 2 + [i] * 6 + [vp])
         for fn in (lib.ray_topk_packed, lib.ray_topk_planes,
-                   lib.ray_topk_fused, lib.row_adam):
+                   lib.ray_topk_fused, lib.row_adam, lib.block_topk):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p

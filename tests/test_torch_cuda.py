@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA ray top-k kernels (K1-K3) and the fused
-row-Adam (K4) against their plain PyTorch versions, and the CUDA path of
-ray_grid_knn against the CPU path.
+"""The port on the card: the CUDA ray top-k kernels (K1-K3), the fused
+row-Adam (K4) and the block top-k of the kNN study (P1-P6) against their
+plain PyTorch versions, and the CUDA path of ray_grid_knn against the CPU
+path.
 
 These need an NVIDIA GPU and nvcc and skip elsewhere. The file imports
 neither JAX nor tests/conftest.py's helpers, so on a card without JAX run
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from point_slam_tpu_torch.ops import adam as tadam
+from point_slam_tpu_torch.ops import block_topk as bt
 from point_slam_tpu_torch.ops import knn as tk
 
 
@@ -125,6 +127,75 @@ def test_ray_grid_knn_on_cuda_equals_the_cpu_path(packed):
     got = tk.ray_grid_knn(gpu, q.to(dev), k=8, probes=27)
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
+
+
+def gathered_block(seed, layout, n_planes, p, c, fill, dev, r=1000, ns=5):
+    """A candidate block in ``layout`` (a share ``fill`` of the slots
+    filled, the rest +inf as the table's empty slots; ids +inf there) and
+    q (R, ns, 3), on ``dev``."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(0, 1, (r, 1, 3)) + rng.normal(0, 0.02, (r, ns, 3))
+    pos = q[:, :1, None, :] + rng.normal(0, 0.1, (r, p, c, 3))
+    ids = rng.integers(0, 1 << 20, (r, p, c)).astype(np.float64)
+    empty = rng.random((r, p, c)) >= fill
+    pos[empty] = np.inf
+    ids[empty] = np.inf
+    planes = [torch.from_numpy(pos[..., a].astype(np.float32)).to(dev)
+              for a in range(3)]
+    planes.append(torch.from_numpy(ids.astype(np.float32)).to(dev))
+    planes = planes[:n_planes]
+    flat = [pl_.reshape(r, p * c) for pl_ in planes]
+    cand = {"planes": flat, "row": torch.cat(flat, 1),
+            "component": torch.stack(flat),
+            "quad": torch.stack(planes, 2).reshape(r, p * n_planes * c)
+            }[layout]
+    q = torch.from_numpy(q.astype(np.float32)).to(dev)
+    return bt.layout_views(cand, layout, r, p, c, n_planes), q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c,lane_mask", [(36, 64, 4095), (40, 64, 8191),
+                                           (64, 64, 8191)],
+                         ids=["P36", "P40-mask8191", "PC4096"])
+@pytest.mark.parametrize("fill", [0.6, 0.001], ids=["dense", "sparse"])
+@pytest.mark.parametrize("n_planes", [4, 3], ids=["ids", "keys"])
+@pytest.mark.parametrize("layout", ["planes", "row", "component", "quad"])
+def test_block_topk_kernel_equals_plain_on_cuda(layout, n_planes, fill, p,
+                                                c, lane_mask):
+    """Keys and ids EQUAL (tolerance 0; ids as int32 bit patterns, +inf
+    for empty winners), for every layout's strides, with and without the
+    id view, up to P*C = 4096 lanes (48 KB of shared memory); the launch
+    is counted."""
+    dev = cuda_or_skip()
+    views, q = gathered_block(12, layout, n_planes, p, c, fill, dev)
+    before = bt.LAUNCHES["block_topk"]
+    keys, ids = bt.block_topk(views, q.unbind(-1), 8, lane_mask)
+    want_keys, want_ids = bt.block_topk_reference(views, q, 8, lane_mask)
+    torch.cuda.synchronize()
+    assert bt.LAUNCHES["block_topk"] == before + 1
+    assert torch.equal(keys, want_keys)
+    if n_planes == 3:
+        assert ids is None and want_ids is None
+    else:
+        assert torch.equal(ids.view(torch.int32), want_ids.view(torch.int32))
+    short = (keys >= 0x7F800000).float().mean()
+    assert short > 0.3 if fill < 0.5 else short == 0
+
+
+@pytest.mark.cuda
+def test_block_topk_refuses_bad_inputs_on_cuda():
+    dev = cuda_or_skip()
+    views, q = gathered_block(13, "row", 4, 36, 64, 0.5, dev, r=64)
+    with pytest.raises(ValueError, match="k<=8"):
+        bt.block_topk(views, q, 9, 4095)
+    with pytest.raises(ValueError, match="float32"):
+        bt.block_topk(tuple(v.double() for v in views), q, 8, 4095)
+    # a view whose slots are not contiguous (probe and slot axes swapped)
+    swapped = tuple(v.transpose(1, 2) for v in views)
+    with pytest.raises(ValueError, match="slot stride 1"):
+        bt.block_topk(swapped, q, 8, 4095)
+    with pytest.raises(ValueError, match="lane_mask"):
+        bt.block_topk(views, q, 8, 2047)
 
 
 @pytest.mark.cuda

@@ -49,6 +49,12 @@ depth, unc, col, valid = R.render_rays(
     torch.ones(64, dtype=bool), R.RenderConfig(ray_knn=True, knn_probes=27),
     stage_color=True, generator=g)
 assert torch.isfinite(depth).all() and valid.any()
+from point_slam_tpu_torch.ops import block_topk as bt
+from point_slam_tpu_torch.profiling import (knn_layout_micro, knn_pallas,
+    knn_pallas2, knn_pallas3, knn_pallas4, knn_quad_micro, knn_study, scene)
+views = bt.layout_views(torch.rand(4, 3 * 2 * 8), "row", 4, 2, 8, 3)
+keys, ids = bt.block_topk(views, torch.rand(4, 5, 3), 8, 15)
+assert keys.shape == (4, 40) and ids is None
 assert not [k for k, v in sys.modules.items()
             if v is not None and (k == "jax" or k.startswith("jax."))]
 print("rendered without jax")
@@ -66,7 +72,8 @@ def test_port_imports_and_renders_without_jax():
 def test_no_source_file_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|point_slam_tpu)(\.|\s|$)")
     files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-    assert len(files) > 15
+    assert len(files) > 30
+    assert os.path.join(PORT, "profiling", "knn_study.py") in files
     for f in files:
         with open(f) as fh:
             bad = [ln for ln in fh if pat.match(ln)]
