@@ -14,10 +14,14 @@ non-zero with no result line otherwise. In one pass it:
    P=27) and holds each ray top-k kernel (K1, K2, K3) against its plain
    PyTorch version at the main path's shapes (R=5000 mapping rays and
    R=1500 tracking rays, ns=5, k=8): keys and ids must be EQUAL (K3's ids
-   as bit patterns); then the row-Adam kernel (K4) against its plain
-   version on the (2^17, 72) buffer with the frame's frustum mask: p, m, v
-   EQUAL. Prints the median CUDA-event times of each kernel and its plain
-   version, and the least time the card could take (the bound);
+   as bit patterns) and prints the fused kernel's persistent grid; then the
+   row-Adam kernel (K4) against its plain version with the frame's frustum
+   mask, on the live prefix of the (2^17, 72) buffer that the mapper hands
+   it (the frame-0 cloud's rows) and on the whole buffer: p, m, v EQUAL.
+   Prints, for each kernel, the median CUDA-event time (host launch cost
+   included), its device time (torch.profiler's summed kernel time), its
+   plain version's time and the least time the card could take on these
+   inputs (the bound: K4's over the rows given);
 3. phase B: runs the port's PointSLAM on configs/Synthetic/room.yaml with
    bench.py's overrides (680x1200; tracking 1500 rays x 40 iterations;
    mapping 5000 rays x 300 iterations every 5th frame; 6000 + 1000
@@ -162,6 +166,25 @@ def cuda_ms(fn) -> float:
     return median_ms(fn, REPEATS)
 
 
+def device_ms(fn, bound_ms):
+    """Device time of one fn() call in ms: the summed kernel durations that
+    torch.profiler records (scene.device_ms). On the card machine the
+    profiler now and then records no device activity, or loses records,
+    for a window; a window that sums to less than the call's bound cannot
+    be whole. After three windows with nothing or too little this is None,
+    printed as "not measured"."""
+    from point_slam_tpu_torch.profiling.scene import device_ms as summed_ms
+    for _ in range(3):
+        ms = summed_ms(fn, REPEATS)
+        if ms is not None and ms >= bound_ms:
+            return ms
+    return None
+
+
+def shown(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def topk_bound(name, probes, c, ns, k):
     """The least time of one ray top-k launch on these inputs, from the
     bytes it needs (the distinct probed rows: coordinates, or the whole
@@ -246,24 +269,35 @@ def phase_a(dev):
             equal = torch.equal(keys, rkeys) and torch.equal(ib, rib)
             ms, plain_ms = cuda_ms(run), cuda_ms(plain)
             (b_ms, b_by), rows = topk_bound(name, probes, c, ns, k)
+            dev_ms = device_ms(run, b_ms)
             print(f"[A] {name} R={r} ns={ns} k={k} P={p_ray}: keys/ids equal "
                   f"to plain: {equal} (max abs err {err}, tolerance 0); "
                   f"valid slots {(keys < 0x7F800000).float().mean().item():.4f}"
                   f", compact rays {compact.float().mean().item():.4f}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({b_by}; {rows} distinct rows)", flush=True)
+                  f"kernel {ms:.4f} ms (device {shown(dev_ms)}), plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {rows} "
+                  f"distinct rows)", flush=True)
             if not equal:
                 raise AssertionError(f"{name} at R={r} differs from plain")
+            if name == "ray_topk_fused":
+                per_sm, smem = knn.fused_occupancy(p_ray, c, ns)
+                n_sm = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                print(f"[A] ray_topk_fused: {per_sm} blocks an SM, grid "
+                      f"{min(r, per_sm * n_sm)}, {smem} bytes of shared "
+                      f"memory a block", flush=True)
             res[r] = {"max_abs_err": float(err), "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by}
-    results["row_adam"] = phase_a_row_adam(dev, cfg, cloud, depth_d, c2w_d)
+                      "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    results["row_adam"] = phase_a_row_adam(dev, cfg, cloud, n, depth_d,
+                                           c2w_d)
     return results
 
 
-def phase_a_row_adam(dev, cfg, cloud, depth_d, c2w_d):
-    """K4 on the (CAP, 72) buffer with the frame's frustum as the row mask:
-    p, m, v EQUAL to the plain version (0 ulp)."""
+def phase_a_row_adam(dev, cfg, cloud, n_live, depth_d, c2w_d):
+    """K4 with the frame's frustum as the row mask, on the live prefix the
+    mapper hands it (the frame-0 cloud's rows) and on the whole (CAP, 72)
+    buffer: p, m, v EQUAL to the plain version (0 ulp)."""
     import torch
     from point_slam_tpu_torch import pointcloud as pc
     from point_slam_tpu_torch.ops import adam
@@ -274,50 +308,51 @@ def phase_a_row_adam(dev, cfg, cloud, depth_d, c2w_d):
                               cam["fy"], cam["cx"], cam["cy"],
                               cfg["mapping"]["frustum_edge"]).float()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    p0 = cloud.packed.clone()
-    g0 = 1e-3 * torch.randn((cap, w), generator=gen, device=dev)
-    m0 = 1e-4 * torch.randn((cap, w), generator=gen, device=dev)
-    v0 = 1e-6 * torch.rand((cap, w), generator=gen, device=dev)
+    g_all = 1e-3 * torch.randn((cap, w), generator=gen, device=dev)
+    m_all = 1e-4 * torch.randn((cap, w), generator=gen, device=dev)
+    v_all = 1e-6 * torch.rand((cap, w), generator=gen, device=dev)
     t_row = torch.full((w,), 37.0, device=dev)   # geometry / rest columns
     t_row[32:64] = 12.0                          # colour columns restarted
     lr_row = torch.zeros(w, device=dev)
     lr_row[:32], lr_row[32:64] = 0.03, 0.005
-    pk, sk = adam.update_rows(p0.clone(), g0, {"m": m0.clone(),
-                                               "v": v0.clone()},
-                              t_row, lr_row, frustum)
-    pr, sr = adam.update_rows_reference(p0, g0, {"m": m0, "v": v0}, t_row,
-                                        lr_row, frustum)
-    torch.cuda.synchronize()
-    pairs = [(pk, pr), (sk["m"], sr["m"]), (sk["v"], sr["v"])]
-    equal = all(torch.equal(a, b) for a, b in pairs)
-    err = max((a - b).abs().max().item() for a, b in pairs)
-    ulps = max((a.view(torch.int32).long() - b.view(torch.int32).long())
-               .abs().max().item() for a, b in pairs)
-    buf = {"p": p0.clone(), "m": m0.clone(), "v": v0.clone()}
-    run = lambda: adam.update_rows(buf["p"], g0, buf, t_row, lr_row, frustum)
-    plain = lambda: adam.update_rows_reference(p0, g0, {"m": m0, "v": v0},
-                                               t_row, lr_row, frustum)
-    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-    # the launch alone, without the wrapper's bias-correction ops
-    from point_slam_tpu_torch.ops import _build
-    c1, c2 = adam.bias_corrections(t_row, 0.9, 0.999, dev)
-    ptrs = [x.data_ptr() for x in (buf["p"], g0, buf["m"], buf["v"],
-                                   frustum, c1, c2, lr_row)]
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.load_library()
-    launch_ms = cuda_ms(lambda: lib.row_adam(
-        *ptrs, cap, w, 0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8, n_sm, stream))
-    b_ms, b_by = bound(7 * cap * w * 4 + cap * 4, cap * w * ADAM_FLOPS)
-    print(f"[A] row_adam N={cap} W={w} ({int(frustum.sum())} rows in the "
-          f"frustum): p/m/v equal to plain: {equal} (max abs err {err}, "
-          f"max {ulps} ulp, tolerance 0); kernel {ms:.4f} ms (the launch "
-          f"alone {launch_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by})", flush=True)
-    if not equal:
-        raise AssertionError(f"row_adam differs from plain by {ulps} ulp")
-    return {cap: {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": b_ms, "bound_by": b_by}}
+    out = {}
+    for rows in (n_live, cap):
+        p0, g0, m0, v0, mask = (x[:rows].clone() for x in (
+            cloud.packed, g_all, m_all, v_all, frustum))
+        pk, sk = adam.update_rows(p0.clone(), g0, {"m": m0.clone(),
+                                                   "v": v0.clone()},
+                                  t_row, lr_row, mask)
+        pr, sr = adam.update_rows_reference(p0, g0, {"m": m0, "v": v0},
+                                            t_row, lr_row, mask)
+        torch.cuda.synchronize()
+        pairs = [(pk, pr), (sk["m"], sr["m"]), (sk["v"], sr["v"])]
+        equal = all(torch.equal(a, b) for a, b in pairs)
+        err = max((a - b).abs().max().item() for a, b in pairs)
+        ulps = max((a.view(torch.int32).long() - b.view(torch.int32).long())
+                   .abs().max().item() for a, b in pairs)
+        buf = {"p": p0.clone(), "m": m0.clone(), "v": v0.clone()}
+        run = lambda: adam.update_rows(buf["p"], g0, buf, t_row, lr_row,
+                                       mask)
+        plain = lambda: adam.update_rows_reference(p0, g0, {"m": m0, "v": v0},
+                                                   t_row, lr_row, mask)
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        # over the rows given: p, g, m, v read and p, m, v written once,
+        # and the mask
+        b_ms, b_by = bound(7 * rows * w * 4 + rows * 4,
+                           rows * w * ADAM_FLOPS)
+        dev_ms = device_ms(run, b_ms)
+        print(f"[A] row_adam N={rows} W={w} ({int(mask.sum())} rows in the "
+              f"frustum{'; the live prefix' if rows == n_live else ''}): "
+              f"p/m/v equal to plain: {equal} (max abs err {err}, max "
+              f"{ulps} ulp, tolerance 0); kernel {ms:.4f} ms through the "
+              f"wrapper (device {shown(dev_ms)}), plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+        if not equal:
+            raise AssertionError(f"row_adam differs from plain by {ulps} ulp")
+        out[rows] = {"max_abs_err": float(err), "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 def run_slam(dev, cfg, setup=None):
@@ -540,17 +575,18 @@ def phase_d(dev):
         n_bytes = (r * 3 * p * c * 4 + r * ns * 3 * 4
                    + r * ns * 8 * 4 * (3 if with_ids else 1))
         b_ms, b_by = bound(n_bytes, r * ns * p * c * KEY_FLOPS)
+        dev_ms = device_ms(run, b_ms)
         print(f"[D] {rec} ({vname}, {STUDY_LAYOUT[rec]} layout, "
               f"{'ids' if with_ids else 'keys only'}) R={r} ns={ns} P={p} "
               f"C={c} mask {mask}: keys/ids equal to plain: True for "
               f"{'/'.join(layouts)} on the dense and the sparse cloud (max "
               f"abs err {err}, tolerance 0; samples short of 8 candidates "
               f"{short[0]:.4f} dense, {short[1]:.4f} sparse); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by})", flush=True)
+              f"{ms:.4f} ms (device {shown(dev_ms)}), plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
         results[rec] = {"max_abs_err": float(err), "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by}
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
 
     # the study at its default sizes: the slice's main path
     bt.LAUNCHES["block_topk"] = 0
@@ -579,6 +615,12 @@ def phase_d(dev):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="ABCD",
+                    help="run only these phases (e.g. A); a partial run "
+                         "prints no kernels line and no result line")
+    phases = ap.parse_args().phases.upper()
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
@@ -598,6 +640,12 @@ def main():
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)",
           flush=True)
 
+    if phases != "ABCD":
+        for name, phase in (("A", phase_a), ("B", phase_b), ("C", phase_c),
+                            ("D", phase_d)):
+            if name in phases:
+                phase(dev)
+        return
     a = phase_a(dev)
     launches = phase_b(dev)
     launches.update(phase_c(dev))
@@ -619,7 +667,9 @@ def kernel_records(a, launches):
                 "row_adam": "point_slam_tpu/ops/adam.py:60"}
     kernels = []
     for name in replaces:
-        shape = max(a[name])                 # R=5000; N=CAP for row_adam
+        # the main path's shapes: R=5000 mapping rays; the live prefix of
+        # the frame-0 cloud for row_adam (the mapper's rows)
+        shape = min(a[name]) if name == "row_adam" else max(a[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": ("point_slam_tpu_torch/ops/csrc/row_adam.cu"
@@ -627,8 +677,8 @@ def kernel_records(a, launches):
                        "point_slam_tpu_torch/ops/csrc/ray_topk.cu"),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(v["max_abs_err"] for v in a[name].values()),
-            **{key: a[name][shape][key]
-               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **{key: a[name][shape][key] for key in
+               ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             # no single PyTorch call computes any of the four functions
             "library_ms": None})
     return kernels
@@ -641,7 +691,8 @@ def study_records(study):
              "source": "point_slam_tpu_torch/ops/csrc/block_topk.cu",
              "replaces": where, "launches": study[rec]["launches"],
              **{key: study[rec][key] for key in
-                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by")},
              # no single PyTorch call computes the keyed top-k with ids
              "library_ms": None}
             for rec, (_, where) in STUDY_BODIES.items()]

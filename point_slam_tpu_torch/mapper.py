@@ -264,7 +264,8 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                  fix_color: float, geo_iter_bound: int, n_iters: int,
                  generator: Optional[torch.Generator] = None, draws=None,
                  exposure: Optional[torch.Tensor] = None, cur_slot: int = 0,
-                 lr_exposure: float = 0.001, ba: Optional[Dict] = None):
+                 lr_exposure: float = 0.001, ba: Optional[Dict] = None,
+                 n_live: Optional[int] = None):
     """The per-frame mapping optimisation, a loop of ``n_iters`` iterations.
 
     ``window``: (color (F,H,W,3), depth (F,H,W), r_query (F,H,W),
@@ -283,7 +284,9 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
 
     With ``ms.fused_adam`` the packed leaf steps through
     ``adam.update_rows`` (the CUDA kernel on the card, in place) with the
-    frustum as its row mask.
+    frustum as its row mask, over its first ``n_live`` rows only (the
+    cloud's points; all rows when None): rows past the cloud have zero
+    gradient, moments and mask, which Adam leaves bit for bit as they are.
 
     Updates ``dec`` in place and returns (packed, stats (3,) device tensor
     [geo_loss, color_loss, n_mask] of the last iteration, the exposure
@@ -314,6 +317,14 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     lr_rows = [geo_cols * lrs[1] + col_cols * lrs[2]
                for lrs in (lr_geo_stage, lr_color_stage)]
     frustum_f = frustum.float()
+    if ms.fused_adam:
+        # the live prefix of the packed leaf, its moments and its mask:
+        # contiguous views that update_rows writes in place; the leaf keeps
+        # its storage through the loop
+        live = packed.shape[0] if n_live is None else n_live
+        p_live, m_live, v_live, mask_live = (
+            x[:live] for x in (leaves[0].detach(), state["m"][0],
+                               state["v"][0], frustum_f))
     stats = torch.zeros(3, device=dev)
     for it in range(n_iters):
         i, j, fill = draws[it] if draws is not None else (None, None, None)
@@ -359,16 +370,19 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             params = [p.detach() for p in leaves]
             if ms.fused_adam:
                 p0, s0 = adam.update_rows(
-                    params[0], grads[0], {"m": state["m"][0],
-                                          "v": state["v"][0]},
-                    t_row, lr_row, frustum_f)
+                    p_live, grads[0][:live], {"m": m_live, "v": v_live},
+                    t_row, lr_row, mask_live)
+                for dst, src in ((p_live, p0), (m_live, s0["m"]),
+                                 (v_live, s0["v"])):
+                    if src is not dst:   # the CPU's plain version
+                        dst.copy_(src)
                 new, rest = adam.update(
                     params[1:], grads[1:], {"m": state["m"][1:],
                                             "v": state["v"][1:]},
                     ts[1:], lr_all[1:])
-                new = [p0] + new
-                state = {"m": [s0["m"]] + rest["m"],
-                         "v": [s0["v"]] + rest["v"]}
+                new = [params[0]] + new
+                state = {"m": state["m"][:1] + rest["m"],
+                         "v": state["v"][:1] + rest["v"]}
             else:
                 grads[0] = grads[0] * frustum_f[:, None]
                 new, state = adam.update(params, grads, state, ts, lr_all)
@@ -701,7 +715,7 @@ class Mapper:
                 ms.r_max // n_frames, frustum, lr_geo, lr_col, fix_color,
                 geo_bound, n_iters, generator=self.generator,
                 exposure=w_exp if ms.encode_exposure else None, cur_slot=k,
-                lr_exposure=0.001, ba=ba)
+                lr_exposure=0.001, ba=ba, n_live=self.n_points_host)
             self.cloud = self.cloud._replace(packed=packed)
             if ms.encode_exposure:
                 self.exposure_feat = exp_out[k].cpu().numpy()

@@ -106,18 +106,50 @@ def load_library() -> ctypes.CDLL:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ray_topk_packed.argtypes = [vp] * 6 + [i] * 6 + [vp]
         lib.ray_topk_planes.argtypes = [vp] * 8 + [i] * 6 + [vp]
-        lib.ray_topk_fused.argtypes = [vp] * 5 + [i] * 6 + [vp]
-        lib.row_adam.argtypes = ([vp] * 8 + [ctypes.c_long, i] + [f] * 5
-                                 + [i, vp])
+        lib.ray_topk_fused.argtypes = [vp] * 4 + [i] * 7 + [vp]
+        lib.ray_topk_fused_occupancy.argtypes = [i] * 3 + [
+            ctypes.POINTER(ctypes.c_long)]
+        lib.row_adam.argtypes = ([vp] * 5 + [vp, f, vp, f, ctypes.c_long, i]
+                                 + [f] * 5 + [vp])
         lib.block_topk.argtypes = ([vp] * 4 + [i] * 8 + [vp] * 3 + [i] * 2
                                    + [vp] * 2 + [i] * 6 + [vp])
         for fn in (lib.ray_topk_packed, lib.ray_topk_planes,
-                   lib.ray_topk_fused, lib.row_adam, lib.block_topk):
+                   lib.ray_topk_fused, lib.ray_topk_fused_occupancy,
+                   lib.row_adam, lib.block_topk):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+_kernels = {}
+_sm_counts = {}
+
+
+def kernel(name: str):
+    """The launcher ``name`` of the kernels' library (looked up once)."""
+    fn = _kernels.get(name)
+    if fn is None:
+        fn = _kernels[name] = getattr(load_library(), name)
+    return fn
+
+
+def stream(device) -> int:
+    """The raw handle of the current CUDA stream on ``device`` (one C call,
+    no Stream object)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def sm_count(device) -> int:
+    """The SM count of ``device`` (asked once)."""
+    n = _sm_counts.get(device.index)
+    if n is None:
+        import torch
+        n = _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def check(name: str, err: int) -> None:

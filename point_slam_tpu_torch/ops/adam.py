@@ -83,6 +83,18 @@ def update_rows_reference(params: torch.Tensor, grads: torch.Tensor,
 LAUNCHES = {"row_adam": 0}
 
 
+def _row_arg(x: Scalar, w: int, dev: torch.device):
+    """A per-column row for the kernel: (pointer, 0.0) for a (W,) f32 CUDA
+    tensor, (None, value) for a number."""
+    if not isinstance(x, torch.Tensor):
+        return None, float(x)
+    if (x.shape != (w,) or x.dtype != torch.float32 or x.device != dev
+            or not x.is_contiguous()):
+        raise ValueError(f"update_rows: t_row and lr_row must be numbers or "
+                         f"contiguous ({w},) f32 tensors on {dev}")
+    return x.data_ptr(), 0.0
+
+
 @torch.no_grad()
 def update_rows(params: torch.Tensor, grads: torch.Tensor,
                 state: Dict[str, torch.Tensor], t_row: Scalar, lr_row: Scalar,
@@ -91,14 +103,18 @@ def update_rows(params: torch.Tensor, grads: torch.Tensor,
     """Adam over one (N, W) f32 leaf with per-COLUMN step counts and
     learning rates and a per-ROW gradient mask, in one pass: the CUDA
     kernel for CUDA tensors, ``update_rows_reference`` for CPU tensors.
-    Same signature and results as ``update_rows_reference``.
+    Same signature and results as ``update_rows_reference``; on the card
+    ``t_row`` and ``lr_row`` are (W,) f32 tensors or numbers.
 
     On the card the kernel writes p, m and v IN PLACE and returns those
-    same tensors: callers keep no reference to the old values.
+    same tensors: callers keep no reference to the old values. The mapper
+    hands it the live rows only (contiguous prefix views of its buffers).
 
     Replaces point_slam_tpu/ops/adam.py::_row_adam_kernel / update_rows.
     Bound by memory: 7 (N, W) f32 arrays read or written once plus the
-    mask, 264.7 MB at N = 2^17, W = 72 (~79 us at 3.35 TB/s).
+    mask, 36.4 MB at the frame-0 cloud's N = 18,006, W = 72 (~11 us at
+    3.35 TB/s). The kernel computes the bias corrections itself, so this
+    wrapper runs no tensor op: it checks attributes and launches.
     """
     m, v = state["m"], state["v"]
     if params.device.type == "cpu":
@@ -106,33 +122,30 @@ def update_rows(params: torch.Tensor, grads: torch.Tensor,
                                      row_mask, b1, b2, eps)
     if params.device.type != "cuda":
         raise RuntimeError(f"update_rows: unsupported device {params.device}")
-    from point_slam_tpu_torch.ops import _build
     if params.dim() != 2 or params.shape[1] % 4:
         raise ValueError(f"update_rows: params {tuple(params.shape)}, "
                          "expected (N, W) with W a multiple of 4")
     n, w = params.shape
     dev = params.device
-    c1, c2 = bias_corrections(t_row, b1, b2, dev)
-    rows = [torch.broadcast_to(x, (w,)).contiguous()
-            for x in (c1, c2, torch.as_tensor(lr_row, dtype=torch.float32,
-                                              device=dev))]
-    tensors = (params, grads, m, v, row_mask, *rows)
-    for x in tensors:
-        if (x.device != dev or x.dtype != torch.float32
+    for x in (params, grads, m, v, row_mask):
+        if (x.dtype != torch.float32 or x.device != dev
                 or not x.is_contiguous() or x.data_ptr() % 16):
             raise ValueError("update_rows: inputs must be contiguous, "
                              "16-byte aligned f32 tensors on one CUDA device")
-    if any(x.shape != (n, w) for x in (grads, m, v)) or \
-            row_mask.shape != (n,):
+    if (grads.shape != params.shape or m.shape != params.shape
+            or v.shape != params.shape or row_mask.shape != (n,)):
         raise ValueError("update_rows: grads, m, v must be (N, W) and "
                          "row_mask (N,)")
+    t_ptr, t_val = _row_arg(t_row, w, dev)
+    lr_ptr, lr_val = _row_arg(lr_row, w, dev)
     if n == 0:
         return params, {"m": m, "v": v}
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    err = lib.row_adam(*[x.data_ptr() for x in tensors], n, w, b1, 1 - b1,
-                       b2, 1 - b2, eps, n_sm, stream)
-    _build.check("row_adam", err)
+    from point_slam_tpu_torch.ops import _build
+    err = _build.kernel("row_adam")(
+        params.data_ptr(), grads.data_ptr(), m.data_ptr(), v.data_ptr(),
+        row_mask.data_ptr(), t_ptr, t_val, lr_ptr, lr_val, n, w, b1, 1 - b1,
+        b2, 1 - b2, eps, _build.stream(dev))
+    if err:
+        _build.check("row_adam", err)
     LAUNCHES["row_adam"] += 1
     return params, {"m": m, "v": v}

@@ -526,11 +526,61 @@ def ray_topk_reference(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
 LAUNCHES = {"ray_topk_packed": 0, "ray_topk_planes": 0, "ray_topk_fused": 0}
 
 _LAYOUTS = {  # number of planes -> (kernel, dtypes of probes, *planes, q)
-    1: ("ray_topk_fused", [torch.int32, torch.int32, torch.float32]),
     2: ("ray_topk_packed",
         [torch.int32, torch.int32, torch.float32, torch.float32]),
     4: ("ray_topk_planes", [torch.int32] + [torch.float32] * 5),
 }
+
+# The row widths C the fused kernel (K3) is built for.
+FUSED_WIDTHS = (32, 64)
+
+
+def fused_occupancy(p: int, c: int, ns: int):
+    """(blocks an SM holds, shared-memory bytes a block) of the fused
+    kernel at (P, C, ns), as its launcher sizes the persistent grid: the
+    card's occupancy calculator, after the kernel asks for the largest
+    shared-memory carveout. (0, bytes) for a C it is not built for."""
+    import ctypes
+    from point_slam_tpu_torch.ops import _build
+    smem = ctypes.c_long(0)
+    n = _build.kernel("ray_topk_fused_occupancy")(p, c, ns,
+                                                  ctypes.byref(smem))
+    return n, smem.value
+
+
+def _ray_topk_fused(probes, plane, q, k, lane_mask):
+    """K3 on the card: one (2, R, ns*k) int32 buffer, the keys and the
+    winners' id bits (viewed as f32)."""
+    from point_slam_tpu_torch.ops import _build
+    dev = q.device
+    for t, dt in ((probes, torch.int32), (plane, torch.int32),
+                  (q, torch.float32)):
+        if t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"ray_topk: probes, plane, q must be contiguous "
+                             f"int32, int32, float32 tensors on {dev}; got "
+                             f"{[x.dtype for x in (probes, plane, q)]}")
+    r, p = probes.shape
+    ns = q.shape[1]
+    c = plane.shape[1] // 2
+    if q.shape != (r, ns, 3) or not 1 <= k <= 8 or not 1 <= ns <= 32:
+        raise ValueError(f"ray_topk: q {tuple(q.shape)}, k {k}, ns {ns} "
+                         "outside (R, ns<=32, 3), k<=8")
+    if plane.data_ptr() % 16 or p * 2 * c > lane_mask + 1:
+        raise ValueError("ray_topk: the plane must be 16-byte aligned and "
+                         f"lane_mask {lane_mask} must cover P*2C lanes")
+    if c not in FUSED_WIDTHS:
+        raise ValueError(f"ray_topk: the fused kernel is built for C in "
+                         f"{FUSED_WIDTHS}, not C={c}")
+    out = torch.empty((2, r, ns * k), dtype=torch.int32, device=dev)
+    if r:
+        err = _build.kernel("ray_topk_fused")(
+            probes.data_ptr(), plane.data_ptr(), q.data_ptr(), out.data_ptr(),
+            r, p, c, ns, k, lane_mask, _build.sm_count(dev),
+            _build.stream(dev))
+        if err:
+            _build.check("ray_topk_fused", err)
+        LAUNCHES["ray_topk_fused"] += 1
+    return out[0], out[1].view(torch.float32)
 
 
 def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
@@ -541,25 +591,29 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
 
     Replaces point_slam_tpu/ops/knn.py::_ray_topk_kernel_fused (fused
     layout), ::_ray_topk_kernel_packed (packed layout) and
-    ::_ray_topk_kernel (f32 planes). On the H100 the kernel is bound by
-    reading each ray's probe rows: P*C slots of 8 bytes (fused and packed:
-    coords + ids) or 16 bytes (planes), ~13.8 KB a ray at P=27, C=64, plus
-    ns*P*C key computations. The kernel reads the probe rows itself (the
-    (R, P*C) candidate block is never materialised), reads ids only for the
-    ns*k winners, keeps the unpacked candidates in shared memory and runs
-    one warp per sample over them with a register top-k.
+    ::_ray_topk_kernel (f32 planes). The kernels read the probe rows
+    themselves (the (R, P*C) candidate block is never materialised). The
+    packed and f32-plane kernels are bound by reading each ray's rows and
+    run one block a ray. The fused kernel touches ~1.3 MB at R=5000 and is
+    bound by issue and latency: it is persistent, brings the next ray's
+    rows by cp.async while it selects for this one, compacts each ray's
+    points once and keys only those, and keeps each sample's top-8 sorted
+    in registers (csrc/ray_topk.cu). It takes C in FUSED_WIDTHS only, and
+    raises for any other width on the card.
     """
     if q.device.type == "cpu":
         return ray_topk_reference(probes, planes, q, k, lane_mask)
     if q.device.type != "cuda":
         raise RuntimeError(f"ray_topk: unsupported device {q.device}")
+    if len(planes) == 1:
+        return _ray_topk_fused(probes, planes[0], q, k, lane_mask)
     from point_slam_tpu_torch.ops import _build
     if len(planes) not in _LAYOUTS:
         raise ValueError(f"ray_topk: {len(planes)} planes; expected 1 "
                          "(fused), 2 (packed) or 4 (f32 planes)")
     name, want = _LAYOUTS[len(planes)]
     r, p = probes.shape
-    c = planes[0].shape[1] // (2 if name == "ray_topk_fused" else 1)
+    c = planes[0].shape[1]
     ns = q.shape[1]
     tensors = (probes, *planes, q)
     for t in tensors:

@@ -79,6 +79,117 @@ def test_ray_topk_kernel_equals_plain_on_cuda(packed, n_pts):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 1500, 5000, 20000])
+@pytest.mark.parametrize("n_pts", [20000, 300], ids=["dense", "sparse"])
+@pytest.mark.parametrize("p", [27, 36])
+@pytest.mark.parametrize("c", [64, 32])
+def test_fused_ray_topk_kernel_equals_plain_on_cuda(c, p, n_pts, r):
+    """K3 at both built widths and two probe budgets, keys and id bits
+    EQUAL to plain; the sparse cloud leaves samples short of k candidates,
+    so id lanes win; R=20000 puts several rays on each persistent block."""
+    dev = cuda_or_skip()
+    pts, n_pts, q = ray_cloud(14, n_pts=n_pts, n_rays=r)
+    index = tk.build_fused_grid_index(pts.to(dev), n_pts, 0.16, 1 << 14, c)
+    q = q.to(dev)
+    probes, _ = tk._box_probes(q, 0.16, index.table_size, p)
+    qk = tk._query_lattice(q, index.cell_size).contiguous()
+    lane_mask = tk._lane_mask(p * 2 * c)
+    before = tk.LAUNCHES["ray_topk_fused"]
+    keys, ids = tk.ray_topk(probes, (index.plane,), qk, 8, lane_mask)
+    rkeys, rids = tk.ray_topk_reference(probes, (index.plane,), qk, 8,
+                                        lane_mask)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["ray_topk_fused"] == before + 1
+    assert torch.equal(keys, rkeys)
+    assert torch.equal(ids.view(torch.int32), rids.view(torch.int32))
+    if r > 1:          # one ray's five samples say little of the cloud
+        short = (keys >= 0x7F800000).float().mean()
+        assert short > 0.3 if n_pts == 300 else short < 0.1
+
+
+@pytest.mark.cuda
+def test_fused_ray_topk_refuses_unbuilt_widths_on_cuda():
+    """A CUDA plane whose C the kernel is not built for raises, naming the
+    widths it has; nothing falls back to the plain version."""
+    dev = cuda_or_skip()
+    probes = torch.zeros((4, 27), dtype=torch.int32, device=dev)
+    q = torch.zeros((4, 5, 3), device=dev)
+    before = dict(tk.LAUNCHES)
+    for c in (16, 48, 96):
+        plane = torch.full((9, 2 * c), -1, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match=r"C in \(32, 64\), not C="):
+            tk.ray_topk(probes, (plane,), q, 8, tk._lane_mask(27 * 2 * c))
+    assert tk.LAUNCHES == before
+    plane = torch.full((9, 128), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32, int32, float32"):
+        tk.ray_topk(probes.float(), (plane,), q, 8, 4095)
+
+
+def adam_case(rng, n, w, dev):
+    p, g, m = (torch.from_numpy(rng.standard_normal((n, w)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    v = torch.from_numpy(np.abs(rng.standard_normal((n, w))).astype(
+        np.float32)).to(dev) * 0.01
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(dev).float()
+    return p, g, m, v, mask
+
+
+def assert_adam_equal(p, g, m, v, t_row, lr_row, mask):
+    """The kernel, in place, EQUAL to update_rows_reference (0 ulp)."""
+    want_p, want = tadam.update_rows_reference(p, g, {"m": m, "v": v}, t_row,
+                                               lr_row, mask)
+    before = tadam.LAUNCHES["row_adam"]
+    buf = {"m": m.clone(), "v": v.clone()}
+    got_p, got = tadam.update_rows(p.clone(), g, buf, t_row, lr_row, mask)
+    torch.cuda.synchronize()
+    assert tadam.LAUNCHES["row_adam"] == before + 1
+    assert got["m"] is buf["m"]                # in place
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got["m"], want["m"]) and torch.equal(got["v"],
+                                                            want["v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 18006])
+def test_row_adam_kernel_on_a_live_prefix_equals_plain_on_cuda(n):
+    """K4 on the first n rows of a (2^15, 72) buffer, as the mapper hands
+    it the live prefix: n = 1, and row counts whose n*72/4 vectors are no
+    multiple of a block's 512; the rows past n are untouched."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(21)
+    p, g, m, v, mask = adam_case(rng, 1 << 15, 72, dev)
+    t_row = torch.from_numpy(rng.integers(1, 40, 72).astype(np.float32)).to(
+        dev)
+    lr_row = torch.from_numpy(rng.uniform(1e-4, 3e-2, 72).astype(
+        np.float32)).to(dev)
+    assert_adam_equal(p[:n], g[:n], m[:n], v[:n], t_row, lr_row, mask[:n])
+    full = p.clone()
+    tadam.update_rows(full[:n], g[:n], {"m": m[:n].clone(),
+                                        "v": v[:n].clone()},
+                      t_row, lr_row, mask[:n])
+    torch.cuda.synchronize()
+    assert torch.equal(full[n:], p[n:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 300, "1..4000"])
+def test_row_adam_bias_corrections_in_the_kernel_on_cuda(t):
+    """The kernel's own c1 = 1 - b1^t, c2 = 1 - b2^t give PyTorch's bits:
+    at t = 1 and t = 300 in every column, at every t from 1 to 4000 (one
+    column each), and with t and lr given as numbers."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(22)
+    w = 4000 if t == "1..4000" else 72
+    p, g, m, v, mask = adam_case(rng, 64, w, dev)
+    t_row = (torch.arange(1, w + 1, dtype=torch.float32, device=dev)
+             if t == "1..4000" else torch.full((w,), float(t), device=dev))
+    lr_row = torch.full((w,), 0.01, device=dev)
+    assert_adam_equal(p, g, m, v, t_row, lr_row, mask)
+    if t != "1..4000":
+        assert_adam_equal(p, g, m, v, float(t), 0.01, mask)
+
+
+@pytest.mark.cuda
 def test_row_adam_kernel_equals_plain_on_cuda():
     """p, m and v EQUAL to update_rows_reference (0 ulp), in place, with a
     per-row mask and per-column step counts and learning rates."""

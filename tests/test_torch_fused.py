@@ -168,6 +168,22 @@ def test_ray_topk_reference_fused_matches_the_jax_kernel(n_pts):
     assert torch.equal(got[1].view(torch.int32), ids.view(torch.int32))
 
 
+def test_fused_ray_topk_widths_and_the_cpu_path():
+    """The fused kernel is built for C = 32 and 64 (a CUDA plane of another
+    width raises, tests/test_torch_cuda.py); the CPU path, the plain
+    version, takes any C."""
+    assert tk.FUSED_WIDTHS == (32, 64)
+    pts, rng = make_cloud(400, 1024, seed=8)
+    index = tk.build_fused_grid_index(t(pts), 400, 0.2, table_size=1 << 10,
+                                      max_per_cell=16)
+    q = t(ray_queries(pts, 400, rng, 16))
+    probes, _ = tk._box_probes(q, index.cell_size, index.table_size, 27)
+    qm = tk._query_lattice(q, index.cell_size)
+    got = tk.ray_topk(probes, (index.plane,), qm, 8, 1023)
+    want = tk.ray_topk_reference(probes, (index.plane,), qm, 8, 1023)
+    assert torch.equal(got[0], want[0]) and got[0].shape == (16, 40)
+
+
 def test_ray_grid_knn_over_the_fused_index_matches_jax():
     """Valid masks and compact flags equal, winner ids equal on >= 99.9% of
     slots, exact recomputed d^2 within 1e-6, quantised d^2 as in
@@ -223,6 +239,33 @@ def test_update_rows_reference_matches_jax_update_rows():
     # masked rows keep decayed moments and do not move
     np.testing.assert_array_equal(n(tp)[~mask][:, m[~mask].all(0) == 0],
                                   p[~mask][:, m[~mask].all(0) == 0])
+
+
+def test_update_rows_reference_on_the_live_prefix_matches_jax_on_the_full_buffer():
+    """The mapper's live-prefix update: the port's plain row-Adam over rows
+    [0, n) with the rows past n kept equals JAX's update_rows over the
+    whole buffer (its Pallas kernel in interpret mode) whose rows past n
+    have zero gradient, moments and mask, as map_optimize's have; JAX
+    leaves those rows bit for bit as they were. Tolerance as
+    test_update_rows_reference_matches_jax_update_rows."""
+    p, g, m, v, mask, t_row, lr_row = adam_inputs(seed=13)
+    live = 700
+    for a in (g, m, v):
+        a[live:] = 0.0
+    mask[live:] = False
+    jp, js = jadam.update_rows(jnp.asarray(p), jnp.asarray(g),
+                               {"m": jnp.asarray(m), "v": jnp.asarray(v)},
+                               jnp.asarray(t_row), jnp.asarray(lr_row),
+                               jnp.asarray(mask))
+    tp, ts = tadam.update_rows_reference(
+        t(p[:live]), t(g[:live]), {"m": t(m[:live]), "v": t(v[:live])},
+        t(t_row), t(lr_row), t(mask[:live]).float())
+    for got, kept, want in ((tp, p, jp), (ts["m"], m, js["m"]),
+                            (ts["v"], v, js["v"])):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(want[live:], kept[live:])
+        np.testing.assert_allclose(np.concatenate([n(got), kept[live:]]),
+                                   want, rtol=1e-6, atol=1e-8)
 
 
 def test_update_rows_on_cpu_is_the_reference_and_counts_nothing():
@@ -474,7 +517,7 @@ def test_mapping_losses_with_exposure_and_ba_match_jax(exposure_scene,
 
 
 def _optimize(sc, window, n_iters, fused, exposure=None, ba=None,
-              geo_bound=0):
+              geo_bound=0, n_live=None):
     (color, depth, rq, cams), *_ = window
     tms = TM.MapperStatic(**COMMON, encode_exposure=exposure is not None,
                           ba=ba is not None, fused_adam=fused)
@@ -493,7 +536,7 @@ def _optimize(sc, window, n_iters, fused, exposure=None, ba=None,
         (t(color), t(depth), t(rq), t(c2w)), 3, 133, frustum,
         [0.001, 0.03, 0.0], [0.005, 0.005, 0.005], 1.0, geo_bound, n_iters,
         generator=torch.Generator().manual_seed(0), exposure=exposure,
-        cur_slot=2, ba=ba)
+        cur_slot=2, ba=ba, n_live=n_live)
     assert torch.equal(sc.tcloud.packed, packed0)   # the input is kept
     return out, frustum, dec
 
@@ -527,23 +570,70 @@ def test_map_optimize_moves_ba_cameras_only_inside_the_window(
     assert float(moved[0]) == 0 and (moved[3:] == 0).all()
 
 
-def test_fused_adam_on_and_off_give_equal_buffers(exposure_scene, window):
+def test_fused_adam_on_and_off_give_equal_buffers(exposure_scene, window,
+                                                  monkeypatch):
     """Bit-equal under deterministic algorithms (the CPU's parallel
-    scatter-add of the packed gradient sums in a varying order)."""
+    scatter-add of the packed gradient sums in a varying order), with the
+    fused Adam given the cloud's n_points live rows only: update_rows sees
+    exactly those rows each iteration, and the rows past them come out
+    bit-identical to the input."""
     sc = exposure_scene
+    npts = int(sc.tcloud.n_points)
+    rows = []
+    real = tadam.update_rows
+
+    def spy(params, *a, **kw):
+        rows.append(tuple(params.shape))
+        return real(params, *a, **kw)
+
+    monkeypatch.setattr(tadam, "update_rows", spy)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
         (p_off, s_off, _, _), frustum, dec_off = _optimize(sc, window, 3,
                                                            False)
-        (p_on, s_on, _, _), _, dec_on = _optimize(sc, window, 3, True)
+        assert rows == []
+        (p_on, s_on, _, _), _, dec_on = _optimize(sc, window, 3, True,
+                                                  n_live=npts)
     finally:
         torch.use_deterministic_algorithms(was)
+    assert rows == [(npts, sc.tcloud.packed.shape[1])] * 3
+    assert npts < sc.tcloud.packed.shape[0]
+    assert torch.equal(p_on[npts:], sc.tcloud.packed[npts:])
     assert torch.equal(p_on, p_off) and torch.equal(s_on, s_off)
     for a, b in zip(dec_on.parameters(), dec_off.parameters()):
         assert torch.equal(a, b)
     delta = (p_on - sc.tcloud.packed).abs()
     assert (delta[~frustum] == 0).all() and float(delta.max()) > 0
+
+
+def test_map_frame_hands_the_fused_adam_the_live_rows(monkeypatch):
+    """Mapper.map_frame with fused_adam: update_rows gets exactly the
+    cloud's n_points rows each iteration (the host count the mapper already
+    fetched), and the packed rows past them stay as they were."""
+    _, tcfg = tiny_cfgs(4)
+    tcfg["cuda"].update({"knn_packed_coords": "fused", "fused_adam": True})
+    tcfg["mapping"]["iters_first"] = 3
+    from point_slam_tpu_torch.datasets import get_dataset
+    _, color, depth, c2w = get_dataset(tcfg)[0]
+    mapper = TM.Mapper(tcfg, TD.init_decoders(tcfg, 0), 4,
+                       np.random.default_rng(3), "cpu")
+    rows = []
+    real = tadam.update_rows
+
+    def spy(params, *a, **kw):
+        rows.append(params.shape[0])
+        return real(params, *a, **kw)
+
+    monkeypatch.setattr(tadam, "update_rows", spy)
+    packed0 = mapper.cloud.packed.clone()
+    mapper.map_frame(0, color, depth, c2w, c2w)
+    live = mapper.n_points_host
+    assert 0 < live == int(mapper.cloud.n_points)
+    assert rows == [live] * 3
+    assert mapper.cloud.packed.shape == packed0.shape
+    assert torch.equal(mapper.cloud.packed[live:], packed0[live:])
+    assert not torch.equal(mapper.cloud.packed[:live], packed0[:live])
 
 
 def test_colour_refinement_schedule_matches_jax(monkeypatch):
