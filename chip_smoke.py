@@ -13,8 +13,8 @@ non-zero with no result line otherwise. In one pass it:
    the synthetic room's frame 0 at bench.py's settings (table 2^16, C=64,
    P=27) and holds each ray top-k kernel (K1, K2, K3) against its plain
    PyTorch version at the main path's shapes (R=5000 mapping rays and
-   R=1500 tracking rays, ns=5, k=8): keys and ids must be EQUAL (K3's ids
-   as bit patterns) and prints the fused kernel's persistent grid; then the
+   R=1500 tracking rays, ns=5, k=8): keys and ids must be EQUAL (ids as
+   bit patterns) and prints each kernel's persistent grid; then the
    row-Adam kernel (K4) against its plain version with the frame's frustum
    mask, on the live prefix of the (2^17, 72) buffer that the mapper hands
    it (the frame-0 cloud's rows) and on the whole buffer: p, m, v EQUAL.
@@ -279,13 +279,11 @@ def phase_a(dev):
                   f"distinct rows)", flush=True)
             if not equal:
                 raise AssertionError(f"{name} at R={r} differs from plain")
-            if name == "ray_topk_fused":
-                per_sm, smem = knn.fused_occupancy(p_ray, c, ns)
-                n_sm = torch.cuda.get_device_properties(
-                    dev).multi_processor_count
-                print(f"[A] ray_topk_fused: {per_sm} blocks an SM, grid "
-                      f"{min(r, per_sm * n_sm)}, {smem} bytes of shared "
-                      f"memory a block", flush=True)
+            per_sm, smem = knn.ray_topk_occupancy(planes, p_ray, ns)
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            print(f"[A] {name}: {per_sm} blocks an SM, grid "
+                  f"{min(r, per_sm * n_sm)}, {smem} bytes of shared memory "
+                  f"a block", flush=True)
             res[r] = {"max_abs_err": float(err), "ms": ms,
                       "device_ms": dev_ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by}

@@ -104,18 +104,15 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ray_topk_packed.argtypes = [vp] * 6 + [i] * 6 + [vp]
-        lib.ray_topk_planes.argtypes = [vp] * 8 + [i] * 6 + [vp]
-        lib.ray_topk_fused.argtypes = [vp] * 4 + [i] * 7 + [vp]
-        lib.ray_topk_fused_occupancy.argtypes = [i] * 3 + [
+        lib.ray_topk.argtypes = [i] + [vp] * 7 + [i] * 7 + [vp]
+        lib.ray_topk_occupancy.argtypes = [i] * 4 + [
             ctypes.POINTER(ctypes.c_long)]
         lib.row_adam.argtypes = ([vp] * 5 + [vp, f, vp, f, ctypes.c_long, i]
                                  + [f] * 5 + [vp])
         lib.block_topk.argtypes = ([vp] * 4 + [i] * 8 + [vp] * 3 + [i] * 2
                                    + [vp] * 2 + [i] * 6 + [vp])
-        for fn in (lib.ray_topk_packed, lib.ray_topk_planes,
-                   lib.ray_topk_fused, lib.ray_topk_fused_occupancy,
-                   lib.row_adam, lib.block_topk):
+        for fn in (lib.ray_topk, lib.ray_topk_occupancy, lib.row_adam,
+                   lib.block_topk):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p

@@ -525,62 +525,40 @@ def ray_topk_reference(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
 # Launches of each CUDA kernel, counted by ray_topk where it launches one.
 LAUNCHES = {"ray_topk_packed": 0, "ray_topk_planes": 0, "ray_topk_fused": 0}
 
-_LAYOUTS = {  # number of planes -> (kernel, dtypes of probes, *planes, q)
-    2: ("ray_topk_packed",
-        [torch.int32, torch.int32, torch.float32, torch.float32]),
-    4: ("ray_topk_planes", [torch.int32] + [torch.float32] * 5),
-}
+# The kernel for a number of planes: (its LAUNCHES name, its layout code in
+# csrc/ray_topk.cu, the planes' dtypes).
+_KERNELS = {2: ("ray_topk_packed", 0, (torch.int32, torch.float32)),
+            4: ("ray_topk_planes", 1, (torch.float32,) * 4),
+            1: ("ray_topk_fused", 2, (torch.int32,))}
 
-# The row widths C the fused kernel (K3) is built for.
-FUSED_WIDTHS = (32, 64)
+# The row widths C the kernels are built for (the fused rows are 2C wide).
+RAY_TOPK_WIDTHS = (32, 64)
 
 
-def fused_occupancy(p: int, c: int, ns: int):
-    """(blocks an SM holds, shared-memory bytes a block) of the fused
-    kernel at (P, C, ns), as its launcher sizes the persistent grid: the
-    card's occupancy calculator, after the kernel asks for the largest
-    shared-memory carveout. (0, bytes) for a C it is not built for."""
+def _kernel_of(planes):
+    """(LAUNCHES name, layout code, the planes' dtypes, C) of the kernel
+    for these planes."""
+    if len(planes) not in _KERNELS:
+        raise ValueError(f"ray_topk: {len(planes)} planes; expected 1 "
+                         "(fused), 2 (packed) or 4 (f32 planes)")
+    name, code, dtypes = _KERNELS[len(planes)]
+    width = planes[0].shape[1]
+    return name, code, dtypes, width // 2 if len(planes) == 1 else width
+
+
+def ray_topk_occupancy(planes: Tuple[torch.Tensor, ...], p: int, ns: int):
+    """(blocks an SM holds, shared-memory bytes a block) of the kernel that
+    ray_topk launches for these planes at P probes and ns samples, as its
+    launcher sizes the persistent grid: the card's occupancy calculator,
+    after the kernel asks for the largest shared-memory carveout. (0, 0)
+    for a C it is not built for."""
     import ctypes
     from point_slam_tpu_torch.ops import _build
+    _, code, _, c = _kernel_of(planes)
     smem = ctypes.c_long(0)
-    n = _build.kernel("ray_topk_fused_occupancy")(p, c, ns,
-                                                  ctypes.byref(smem))
+    n = _build.kernel("ray_topk_occupancy")(code, p, c, ns,
+                                            ctypes.byref(smem))
     return n, smem.value
-
-
-def _ray_topk_fused(probes, plane, q, k, lane_mask):
-    """K3 on the card: one (2, R, ns*k) int32 buffer, the keys and the
-    winners' id bits (viewed as f32)."""
-    from point_slam_tpu_torch.ops import _build
-    dev = q.device
-    for t, dt in ((probes, torch.int32), (plane, torch.int32),
-                  (q, torch.float32)):
-        if t.dtype != dt or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"ray_topk: probes, plane, q must be contiguous "
-                             f"int32, int32, float32 tensors on {dev}; got "
-                             f"{[x.dtype for x in (probes, plane, q)]}")
-    r, p = probes.shape
-    ns = q.shape[1]
-    c = plane.shape[1] // 2
-    if q.shape != (r, ns, 3) or not 1 <= k <= 8 or not 1 <= ns <= 32:
-        raise ValueError(f"ray_topk: q {tuple(q.shape)}, k {k}, ns {ns} "
-                         "outside (R, ns<=32, 3), k<=8")
-    if plane.data_ptr() % 16 or p * 2 * c > lane_mask + 1:
-        raise ValueError("ray_topk: the plane must be 16-byte aligned and "
-                         f"lane_mask {lane_mask} must cover P*2C lanes")
-    if c not in FUSED_WIDTHS:
-        raise ValueError(f"ray_topk: the fused kernel is built for C in "
-                         f"{FUSED_WIDTHS}, not C={c}")
-    out = torch.empty((2, r, ns * k), dtype=torch.int32, device=dev)
-    if r:
-        err = _build.kernel("ray_topk_fused")(
-            probes.data_ptr(), plane.data_ptr(), q.data_ptr(), out.data_ptr(),
-            r, p, c, ns, k, lane_mask, _build.sm_count(dev),
-            _build.stream(dev))
-        if err:
-            _build.check("ray_topk_fused", err)
-        LAUNCHES["ray_topk_fused"] += 1
-    return out[0], out[1].view(torch.float32)
 
 
 def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
@@ -589,55 +567,60 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     tensors, ``ray_topk_reference`` for CPU tensors. Same signature and
     outputs as ``ray_topk_reference``.
 
-    Replaces point_slam_tpu/ops/knn.py::_ray_topk_kernel_fused (fused
-    layout), ::_ray_topk_kernel_packed (packed layout) and
-    ::_ray_topk_kernel (f32 planes). The kernels read the probe rows
-    themselves (the (R, P*C) candidate block is never materialised). The
-    packed and f32-plane kernels are bound by reading each ray's rows and
-    run one block a ray. The fused kernel touches ~1.3 MB at R=5000 and is
-    bound by issue and latency: it is persistent, brings the next ray's
-    rows by cp.async while it selects for this one, compacts each ray's
-    points once and keys only those, and keeps each sample's top-8 sorted
-    in registers (csrc/ray_topk.cu). It takes C in FUSED_WIDTHS only, and
-    raises for any other width on the card.
+    Replaces point_slam_tpu/ops/knn.py::_ray_topk_kernel_packed (packed
+    layout), ::_ray_topk_kernel (f32 planes) and ::_ray_topk_kernel_fused
+    (fused layout) with one persistent kernel over the three layouts
+    (csrc/ray_topk.cu), bound by issue and latency: it reads each ray's
+    probe rows itself (the (R, P*C) candidate block is never materialised),
+    brings the next ray's rows by cp.async while it selects for this one,
+    compacts each ray's points once and keys only those, and keeps each
+    sample's top-8 sorted in registers. On the card every plane must be
+    contiguous and 16-byte aligned with C in RAY_TOPK_WIDTHS; anything else
+    raises, and nothing falls back to the plain version.
     """
     if q.device.type == "cpu":
         return ray_topk_reference(probes, planes, q, k, lane_mask)
     if q.device.type != "cuda":
         raise RuntimeError(f"ray_topk: unsupported device {q.device}")
-    if len(planes) == 1:
-        return _ray_topk_fused(probes, planes[0], q, k, lane_mask)
     from point_slam_tpu_torch.ops import _build
-    if len(planes) not in _LAYOUTS:
-        raise ValueError(f"ray_topk: {len(planes)} planes; expected 1 "
-                         "(fused), 2 (packed) or 4 (f32 planes)")
-    name, want = _LAYOUTS[len(planes)]
-    r, p = probes.shape
-    c = planes[0].shape[1]
-    ns = q.shape[1]
+    name, code, dtypes, c = _kernel_of(planes)
+    dev = q.device
     tensors = (probes, *planes, q)
-    for t in tensors:
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("ray_topk: inputs must be contiguous tensors on "
-                             "one CUDA device")
-    if [t.dtype for t in tensors] != want:
+    if [t.dtype for t in tensors] != [torch.int32, *dtypes, torch.float32]:
         raise ValueError(f"ray_topk: dtypes {[t.dtype for t in tensors]}, "
-                         f"expected {want}")
+                         f"expected int32 probes, {list(dtypes)} planes, "
+                         "float32 q")
+    if any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"ray_topk: probes, planes and q must be "
+                         f"contiguous tensors on {dev}")
+    r, p = probes.shape
+    ns = q.shape[1]
+    width = planes[0].shape[1]
     if q.shape != (r, ns, 3) or not 1 <= k <= 8 or not 1 <= ns <= 32:
         raise ValueError(f"ray_topk: q {tuple(q.shape)}, k {k}, ns {ns} "
                          "outside (R, ns<=32, 3), k<=8")
-    keys = torch.empty((r, ns * k), dtype=torch.int32, device=q.device)
-    ids = torch.empty((r, ns * k), dtype=torch.float32, device=q.device)
-    if r == 0:
-        return keys, ids
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = [t.data_ptr() for t in tensors]
-    err = getattr(lib, name)(*ptrs, keys.data_ptr(), ids.data_ptr(),
-                             r, p, c, ns, k, lane_mask, stream)
-    _build.check(name, err)
-    LAUNCHES[name] += 1
-    return keys, ids
+    if any(pl.shape != planes[0].shape for pl in planes):
+        raise ValueError(f"ray_topk: plane shapes "
+                         f"{[tuple(pl.shape) for pl in planes]} differ")
+    if c not in RAY_TOPK_WIDTHS or width % c:
+        raise ValueError(f"ray_topk: the kernels are built for C in "
+                         f"{RAY_TOPK_WIDTHS}, not C={c}")
+    if any(pl.data_ptr() % 16 for pl in planes):
+        raise ValueError("ray_topk: every plane must be 16-byte aligned")
+    if p * width > lane_mask + 1 or lane_mask >= 1 << 23:
+        raise ValueError(f"ray_topk: lane_mask {lane_mask} must cover the "
+                         f"{p * width} lanes, below 2^23")
+    out = torch.empty((2, r, ns * k), dtype=torch.int32, device=dev)
+    if r:
+        ptrs = [pl.data_ptr() for pl in planes]
+        ptrs += [None] * (4 - len(ptrs))
+        err = _build.kernel("ray_topk")(
+            code, probes.data_ptr(), *ptrs, q.data_ptr(), out.data_ptr(), r,
+            p, c, ns, k, lane_mask, _build.sm_count(dev), _build.stream(dev))
+        if err:
+            _build.check(name, err)
+        LAUNCHES[name] += 1
+    return out[0], out[1].view(torch.float32)
 
 
 def index_planes(index):

@@ -42,87 +42,145 @@ def ray_cloud(seed, n_pts=20000, cap=1 << 15, n_rays=1500, ns=5):
     return torch.from_numpy(pts), n_pts, torch.from_numpy(q)
 
 
-BUILD = {True: tk.build_packed_grid_index, False: tk.build_grid_index,
-         "fused": tk.build_fused_grid_index}
-NAME = {True: "ray_topk_packed", False: "ray_topk_planes",
-        "fused": "ray_topk_fused"}
+def full_cell_cloud(seed, n_rays, ns=5, n_full=100, n_rest=300,
+                    cap=1 << 15):
+    """A sparse cloud with ``n_full`` points in the cell [0, 0.16)^3 (more
+    than C of either built width) and rays whose samples all lie in that
+    cell, so each ray's probe 0 is a full bucket: no empty slot there, and
+    its 0.16-cell neighbourhood holds the points past C that stay."""
+    rng = np.random.default_rng(seed)
+    pts = np.full((cap, 3), 1e6, np.float32)
+    pts[:n_rest] = rng.uniform(-2, 2, (n_rest, 3))
+    pts[n_rest:n_rest + n_full] = rng.uniform(0.01, 0.15, (n_full, 3))
+    dirs = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    z = np.linspace(-0.03, 0.03, ns).astype(np.float32)
+    q = (0.08 + rng.uniform(-0.02, 0.02, (n_rays, 1, 3))
+         + dirs[:, None, :] * z[None, :, None]).astype(np.float32)
+    return torch.from_numpy(pts), n_rest + n_full, torch.from_numpy(q)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("packed", [True, False, "fused"],
-                         ids=["K1", "K2", "K3"])
-@pytest.mark.parametrize("n_pts", [20000, 300], ids=["dense", "sparse"])
-def test_ray_topk_kernel_equals_plain_on_cuda(packed, n_pts):
-    """Keys and ids EQUAL (tolerance 0; ids as int32 bit patterns, since
-    K3's winners past the finite candidates read coordinate bits), and the
-    launch is counted. The sparse cloud leaves most samples with fewer than
-    k candidates."""
-    dev = cuda_or_skip()
-    pts, n_pts, q = ray_cloud(8, n_pts=n_pts)
-    index = BUILD[packed](pts.to(dev), n_pts, 0.16, 1 << 14, 64)
-    q = q.to(dev)
-    probes, _ = tk._box_probes(q, 0.16, index.table_size, 27)
-    qk = (q if packed is False
-          else tk._query_lattice(q, index.cell_size)).contiguous()
-    lane_mask = 4095 if packed == "fused" else 2047
-    name = NAME[packed]
-    before = tk.LAUNCHES[name]
-    keys, ids = tk.ray_topk(probes, tk.index_planes(index), qk, 8, lane_mask)
-    rkeys, rids = tk.ray_topk_reference(probes, tk.index_planes(index), qk,
-                                        8, lane_mask)
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES[name] == before + 1
-    assert torch.equal(keys, rkeys)
-    assert torch.equal(ids.view(torch.int32), rids.view(torch.int32))
-    valid = (keys < 0x7F800000).float().mean()
-    assert valid > 0.9 if n_pts == 20000 else valid < 0.9
+BUILD = {"K1": tk.build_packed_grid_index, "K2": tk.build_grid_index,
+         "K3": tk.build_fused_grid_index}
+NAME = {"K1": "ray_topk_packed", "K2": "ray_topk_planes",
+        "K3": "ray_topk_fused"}
+
+
+def query_of(kernel, q, index):
+    """The queries the kernel takes: metric (K2) or lattice (K1, K3)."""
+    return (q if kernel == "K2"
+            else tk._query_lattice(q, index.cell_size)).contiguous()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [1, 1500, 5000, 20000])
-@pytest.mark.parametrize("n_pts", [20000, 300], ids=["dense", "sparse"])
+@pytest.mark.parametrize("cloud", ["dense", "sparse", "full"])
 @pytest.mark.parametrize("p", [27, 36])
 @pytest.mark.parametrize("c", [64, 32])
-def test_fused_ray_topk_kernel_equals_plain_on_cuda(c, p, n_pts, r):
-    """K3 at both built widths and two probe budgets, keys and id bits
-    EQUAL to plain; the sparse cloud leaves samples short of k candidates,
-    so id lanes win; R=20000 puts several rays on each persistent block."""
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_ray_topk_kernel_equals_plain_on_cuda(kernel, c, p, cloud, r):
+    """Each layout at both built widths and two probe budgets: keys and ids
+    EQUAL to the plain version (tolerance 0; ids as int32 bit patterns,
+    since K3's winners past the finite candidates read coordinate bits),
+    and the launch is counted. The sparse cloud leaves most samples with
+    fewer than k points, so empty lanes (and K3's id lanes) win; "full"
+    fills each ray's probe 0, so that bucket has no empty lane (with
+    C >= 2k a sample that sees a full probe 0 has k points, so no empty
+    lane wins there); R=20000 puts several rays on each persistent
+    block."""
     dev = cuda_or_skip()
-    pts, n_pts, q = ray_cloud(14, n_pts=n_pts, n_rays=r)
-    index = tk.build_fused_grid_index(pts.to(dev), n_pts, 0.16, 1 << 14, c)
+    if cloud == "full":
+        pts, n_pts, q = full_cell_cloud(15, r)
+    else:
+        pts, n_pts, q = ray_cloud(14, n_pts=20000 if cloud == "dense"
+                                  else 300, n_rays=r)
+    index = BUILD[kernel](pts.to(dev), n_pts, 0.16, 1 << 14, c)
     q = q.to(dev)
     probes, _ = tk._box_probes(q, 0.16, index.table_size, p)
-    qk = tk._query_lattice(q, index.cell_size).contiguous()
-    lane_mask = tk._lane_mask(p * 2 * c)
-    before = tk.LAUNCHES["ray_topk_fused"]
-    keys, ids = tk.ray_topk(probes, (index.plane,), qk, 8, lane_mask)
-    rkeys, rids = tk.ray_topk_reference(probes, (index.plane,), qk, 8,
-                                        lane_mask)
+    qk = query_of(kernel, q, index)
+    planes = tk.index_planes(index)
+    lane_mask = tk._lane_mask(p * planes[0].shape[1])
+    name = NAME[kernel]
+    before = tk.LAUNCHES[name]
+    keys, ids = tk.ray_topk(probes, planes, qk, 8, lane_mask)
+    rkeys, rids = tk.ray_topk_reference(probes, planes, qk, 8, lane_mask)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES["ray_topk_fused"] == before + 1
+    assert tk.LAUNCHES[name] == before + 1
     assert torch.equal(keys, rkeys)
     assert torch.equal(ids.view(torch.int32), rids.view(torch.int32))
-    if r > 1:          # one ray's five samples say little of the cloud
-        short = (keys >= 0x7F800000).float().mean()
-        assert short > 0.3 if n_pts == 300 else short < 0.1
+    short = (keys >= 0x7F800000).float().mean()
+    if cloud == "full":
+        assert (index.counts[probes[:, 0].long()] > c).all()
+        assert short == 0
+    elif r > 1:        # one ray's five samples say little of the cloud
+        assert short > 0.3 if cloud == "sparse" else short < 0.1
+
+
+def planes_of(kernel, c, dev, rows=9, view=None):
+    """Empty planes of ``kernel``'s layout at width C, each made by
+    ``view(shape, fill, dtype)`` (default: a fresh contiguous tensor)."""
+    view = view or (lambda shape, fill, dt: torch.full(shape, fill, dtype=dt,
+                                                       device=dev))
+    inf = float("inf")
+    specs = {"K1": [((rows, c), -1, torch.int32),
+                    ((rows, c), inf, torch.float32)],
+             "K2": [((rows, c), inf, torch.float32)] * 4,
+             "K3": [((rows, 2 * c), -1, torch.int32)]}[kernel]
+    return tuple(view(*spec) for spec in specs)
 
 
 @pytest.mark.cuda
-def test_fused_ray_topk_refuses_unbuilt_widths_on_cuda():
-    """A CUDA plane whose C the kernel is not built for raises, naming the
-    widths it has; nothing falls back to the plain version."""
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_fused_ray_topk_refuses_unbuilt_widths_on_cuda(kernel):
+    """A CUDA plane whose C the kernels are not built for raises, naming
+    the widths they have; nothing falls back to the plain version."""
     dev = cuda_or_skip()
     probes = torch.zeros((4, 27), dtype=torch.int32, device=dev)
     q = torch.zeros((4, 5, 3), device=dev)
     before = dict(tk.LAUNCHES)
     for c in (16, 48, 96):
-        plane = torch.full((9, 2 * c), -1, dtype=torch.int32, device=dev)
+        planes = planes_of(kernel, c, dev)
         with pytest.raises(ValueError, match=r"C in \(32, 64\), not C="):
-            tk.ray_topk(probes, (plane,), q, 8, tk._lane_mask(27 * 2 * c))
+            tk.ray_topk(probes, planes, q, 8,
+                        tk._lane_mask(27 * planes[0].shape[1]))
     assert tk.LAUNCHES == before
-    plane = torch.full((9, 128), -1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="int32, int32, float32"):
-        tk.ray_topk(probes.float(), (plane,), q, 8, 4095)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_ray_topk_refuses_bad_inputs_on_cuda(kernel):
+    """k > 8, a wrong dtype, planes of different shapes, a plane that is
+    not 16-byte aligned and one that is a non-contiguous view all raise
+    before any launch."""
+    dev = cuda_or_skip()
+    probes = torch.zeros((4, 27), dtype=torch.int32, device=dev)
+    q = torch.zeros((4, 5, 3), device=dev)
+    planes = planes_of(kernel, 64, dev)
+    mask = tk._lane_mask(27 * planes[0].shape[1])
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="k<=8"):
+        tk.ray_topk(probes, planes, q, 9, mask)
+    with pytest.raises(ValueError, match="dtypes"):
+        tk.ray_topk(probes.float(), planes, q, 8, mask)
+    with pytest.raises(ValueError, match="lane_mask"):
+        tk.ray_topk(probes, planes, q, 8, mask // 2)
+    if len(planes) > 1:
+        with pytest.raises(ValueError, match="shapes"):
+            tk.ray_topk(probes, (*planes[:-1], planes[-1][:8]), q, 8, mask)
+    # one word past a 16-byte boundary, still contiguous
+    shifted = planes_of(kernel, 64, dev, view=lambda shape, fill, dt: (
+        torch.full((shape[0] * shape[1] + 1,), fill, dtype=dt,
+                   device=dev)[1:].view(shape)))
+    assert all(pl_.is_contiguous() for pl_ in shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.ray_topk(probes, shifted, q, 8, mask)
+    # rows of a wider tensor: the row stride is not the plane's width
+    strided = planes_of(kernel, 64, dev, view=lambda shape, fill, dt: (
+        torch.full((shape[0], 2 * shape[1]), fill, dtype=dt,
+                   device=dev)[:, :shape[1]]))
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.ray_topk(probes, strided, q, 8, mask)
+    assert tk.LAUNCHES == before
 
 
 def adam_case(rng, n, w, dev):
@@ -223,15 +281,14 @@ def test_row_adam_kernel_equals_plain_on_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("packed", [True, False, "fused"],
-                         ids=["K1", "K2", "K3"])
-def test_ray_grid_knn_on_cuda_equals_the_cpu_path(packed):
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_ray_grid_knn_on_cuda_equals_the_cpu_path(kernel):
     """The same cloud indexed and queried on the card (kernel) and on the
     CPU (plain version) gives the same index and the same neighbours."""
     dev = cuda_or_skip()
     pts, n_pts, q = ray_cloud(9)
-    cpu = BUILD[packed](pts, n_pts, 0.16, 1 << 14, 64)
-    gpu = BUILD[packed](pts.to(dev), n_pts, 0.16, 1 << 14, 64)
+    cpu = BUILD[kernel](pts, n_pts, 0.16, 1 << 14, 64)
+    gpu = BUILD[kernel](pts.to(dev), n_pts, 0.16, 1 << 14, 64)
     for a, b in zip(cpu, gpu):
         assert torch.equal(a, b.cpu())
     want = tk.ray_grid_knn(cpu, q, k=8, probes=27)
@@ -307,16 +364,3 @@ def test_block_topk_refuses_bad_inputs_on_cuda():
         bt.block_topk(swapped, q, 8, 4095)
     with pytest.raises(ValueError, match="lane_mask"):
         bt.block_topk(views, q, 8, 2047)
-
-
-@pytest.mark.cuda
-def test_ray_topk_refuses_bad_inputs_on_cuda():
-    dev = cuda_or_skip()
-    probes = torch.zeros((4, 27), dtype=torch.int32, device=dev)
-    planes = (torch.zeros((9, 64), dtype=torch.int32, device=dev),
-              torch.zeros((9, 64), device=dev))
-    q = torch.zeros((4, 5, 3), device=dev)
-    with pytest.raises(ValueError, match="k<=8"):
-        tk.ray_topk(probes, planes, q, 9, 2047)
-    with pytest.raises(ValueError, match="dtypes"):
-        tk.ray_topk(probes.float(), planes, q, 8, 2047)

@@ -169,10 +169,10 @@ def test_ray_topk_reference_fused_matches_the_jax_kernel(n_pts):
 
 
 def test_fused_ray_topk_widths_and_the_cpu_path():
-    """The fused kernel is built for C = 32 and 64 (a CUDA plane of another
+    """The kernels are built for C = 32 and 64 (a CUDA plane of another
     width raises, tests/test_torch_cuda.py); the CPU path, the plain
     version, takes any C."""
-    assert tk.FUSED_WIDTHS == (32, 64)
+    assert tk.RAY_TOPK_WIDTHS == (32, 64)
     pts, rng = make_cloud(400, 1024, seed=8)
     index = tk.build_fused_grid_index(t(pts), 400, 0.2, table_size=1 << 10,
                                       max_per_cell=16)
