@@ -53,7 +53,26 @@ non-zero with no result line otherwise. In one pass it:
    grid_knn), counts its block top-k launches, and checks that every body
    ran, that the sine-sheet variants match per-sample grid_knn on >= 95% of
    slots and that the layouts of one scene select the same neighbours;
-6. prints one JSON line of the kernels, the card again, and last the line
+6. phase E, in a process of its own (deterministic cuBLAS needs a fixed
+   workspace, which would slow the other phases' matmuls): what a run
+   leaves behind, on configs/Synthetic/room.yaml at phase B's widths
+   over frames 0-10 with a checkpoint every 5 frames. A
+   continuous run (it must write ckpts/00005.npz, metrics.jsonl,
+   final_point_cloud.{npy,ply} and npc_cloud.npy), then a fresh PointSLAM
+   resumed from ckpts/00005.npz over frames 6-10, both under
+   torch.use_deterministic_algorithms: ATE without alignment under 2 cm
+   for both and within 0.05 cm of each other, and the poses bit-equal
+   unless an op had no deterministic version (named then). Then the
+   end-of-run evaluation (tools/evaluate.py) of the continuous run:
+   frames 0, 5 and 10 re-rendered at 680x1200 through K1 (launches
+   counted), PSNR / MS-SSIM / depth L1, TSDF fusion at the config's
+   meshing.voxel on the card, the native marching on the host, and the
+   reconstruction metrics against the culled analytic room (3D, and the
+   2D depth L1 over E_VIEWS_2D views with the native rasterizer). Prints
+   each step's seconds, the metrics and the peak device memory; fails on
+   a missing file, a missing or NaN metric, a non-finite F-score or an ATE
+   at or over 2 cm;
+7. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -92,6 +111,13 @@ STUDY_LAYOUT = {"P1": "planes", "P2": "row", "P2'": "row", "P3": "row",
                 "P6q": "quad", "P6p": "planes"}
 STUDY_SPARSE_POINTS = 300   # most samples then have fewer than 8 candidates
 STUDY_ITERS = 10            # timed calls a study measurement
+# phase E: frames 0-10 of room.yaml, a checkpoint every 5 frames; the 2D
+# reconstruction metric over E_VIEWS_2D virtual views (1000 in the config)
+E_FRAMES = 11
+E_CKPT_FREQ = 5
+E_VIEWS_2D = 10
+E_CUBLAS_WORKSPACE = ":4096:8"   # the setting deterministic cuBLAS needs
+E_LAUNCHES_TAG = "[E] ray_topk_packed launches in phase E:"
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
@@ -612,14 +638,181 @@ def phase_d(dev):
     return results
 
 
+def phase_e(dev):
+    """Checkpoints and resume, the run's artefacts and the end-of-run
+    evaluation on room.yaml at phase B's widths. Returns the K1 launches
+    of the phase (both runs and the re-render)."""
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from point_slam_tpu_torch.ops import knn
+    from point_slam_tpu_torch.slam import PointSLAM
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+    from point_slam_tpu_torch.tools.evaluate import run_end_of_run_eval
+    from point_slam_tpu_torch.utils import native
+    from point_slam_tpu_torch.utils.memory import memory_report
+
+    root = os.path.join(HERE, "output", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def config(name):
+        cfg = bench_config(E_FRAMES)
+        cfg["mapping"].update({"iters_first": ITERS_FIRST,
+                               "ckpt_freq": E_CKPT_FREQ})
+        cfg["cuda"]["knn_packed_coords"] = True
+        cfg["render_datasets"] = ["synthetic"]
+        cfg["reconstruction_datasets"] = ["synthetic"]
+        cfg["rendering"]["eval_img"] = True
+        cfg["meshing"].update({"eval_rec": True, "eval_2d": True,
+                               "eval_2d_n_imgs": E_VIEWS_2D})
+        cfg["data"]["output"] = os.path.join(root, name)
+        return cfg
+
+    cfg = config("continuous")
+    print(f"[E] cut: frames 0-{E_FRAMES - 1} (bench.py runs 41); "
+          f"mapping.ckpt_freq {E_CKPT_FREQ}; meshing.eval_2d on with "
+          f"eval_2d_n_imgs 1000 -> {E_VIEWS_2D}; meshing.voxel "
+          f"{cfg['meshing']['voxel']} m as configured", flush=True)
+    knn.LAUNCHES["ray_topk_packed"] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            slam = PointSLAM(cfg, device=dev)
+            csum = slam.run()
+            torch.cuda.synchronize()
+            steps["continuous run"] = time.perf_counter() - t0
+            run_peak = memory_report(dev)["device_peak_bytes_in_use"]
+            ckpt = os.path.join(slam.output, "ckpts", "00005.npz")
+            t0 = time.perf_counter()
+            resumed = PointSLAM(config("resumed"), device=dev)
+            rsum = resumed.run(resume_from=ckpt)
+            torch.cuda.synchronize()
+            steps["resumed run"] = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+    refused = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught
+                      if "deterministic" in str(w.message)})
+    for name in ("ckpts/00005.npz", "metrics.jsonl", "final_point_cloud.npy",
+                 "final_point_cloud.ply", "npc_cloud.npy"):
+        if not os.path.exists(os.path.join(slam.output, name)):
+            raise AssertionError(f"the run wrote no {name}")
+    est_c, est_r = csum["estimate_c2w_list"], rsum["estimate_c2w_list"]
+    ate_c, ate_r = (evaluate_ate(csum["gt_c2w_list"], e, align=False)[
+        "absolute_translational_error.rmse"] for e in (est_c, est_r))
+    diff = float(np.abs(est_c - est_r).max())
+    print(f"[E] continuous run (frames 0-{E_FRAMES - 1}) ATE no-align "
+          f"{ate_c * 100:.4f} cm; resumed from {os.path.relpath(ckpt, HERE)}"
+          f" (frames 6-{E_FRAMES - 1}) {ate_r * 100:.4f} cm; largest pose "
+          f"difference {diff:.3e}; cloud {csum['n_points']} and "
+          f"{rsum['n_points']} points; deterministic mode: "
+          f"{'every op had a deterministic version' if not refused else 'refused by ' + '; '.join(refused)}",
+          flush=True)
+    if not (np.isfinite(est_c).all() and np.isfinite(est_r).all()):
+        raise AssertionError("non-finite poses")
+    if not (ate_c < 0.02 and ate_r < 0.02):
+        raise AssertionError(f"ATE no-align {ate_c} / {ate_r} m >= 2 cm")
+    if not abs(ate_c - ate_r) < 0.0005:
+        raise AssertionError(f"resumed ATE {ate_r} m is not within 0.05 cm "
+                             f"of the continuous run's {ate_c} m")
+    if not refused and not (np.array_equal(est_c, est_r) and torch.equal(
+            slam.mapper.cloud.packed[:slam.mapper.n_points_host],
+            resumed.mapper.cloud.packed[:resumed.mapper.n_points_host])):
+        raise AssertionError("deterministic resumed run differs from the "
+                             "continuous one")
+    slam_launches = knn.LAUNCHES["ray_topk_packed"]
+
+    knn.LAUNCHES["ray_topk_packed"] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_end_of_run_eval(slam, slam.output)
+    steps["evaluation"] = time.perf_counter() - t0
+    eval_peak = memory_report(dev)["device_peak_bytes_in_use"]
+    k1 = knn.LAUNCHES["ray_topk_packed"]
+    print(f"[E] step seconds: { {k: round(v, 2) for k, v in steps.items()} }"
+          f"; in the evaluation "
+          f"{ {k[5:]: round(v, 2) for k, v in res.items() if k.startswith('time_')} }"
+          f" (fuse {res.get('mesh_time_fuse', float('nan')):.2f}, extract "
+          f"{res.get('mesh_time_extract', float('nan')):.2f})", flush=True)
+    print(f"[E] re-render of frames {list(range(0, E_FRAMES, 5))} at "
+          f"{cfg['cam']['H']}x{cfg['cam']['W']}: ray_topk_packed launches "
+          f"{k1}; frame_cnt {res.get('frame_cnt')}; depth_l1_render "
+          f"{res.get('depth_l1_render')}; avg_psnr {res.get('avg_psnr')}; "
+          f"avg_ms_ssim {res.get('avg_ms_ssim')}; avg_lpips "
+          f"{res.get('avg_lpips')!r}", flush=True)
+    print(f"[E] mesh: TSDF grid {res.get('mesh_tsdf_dims')} at voxel "
+          f"{cfg['meshing']['voxel']} m on the card, {res.get('mesh_n_verts')}"
+          f" vertices, {res.get('mesh_n_faces')} faces; the marching and "
+          f"raster backend: native (libraries loaded "
+          f"{sorted(native._libs)})", flush=True)
+    print(f"[E] recon: " + "; ".join(
+        f"{k} {res.get(k)}" for k in (
+            "recon_precision", "recon_recall", "recon_F_score",
+            "recon_accuracy", "recon_completion", "recon_depth_l1_2d")),
+        flush=True)
+    print(f"[E] peak device memory: SLAM runs {run_peak / 2 ** 30:.3f} GiB, "
+          f"evaluation {eval_peak / 2 ** 30:.3f} GiB (memory_report); "
+          f"phase E wall {sum(steps.values()):.2f} s; card {card_line()}",
+          flush=True)
+    if "failed" in res:
+        raise AssertionError(f"evaluation steps failed: {res['failed']}")
+    need = ("ate_rmse", "ate_rmse_no_align", "depth_l1_render", "avg_psnr",
+            "avg_ms_ssim", "recon_precision", "recon_recall",
+            "recon_F_score", "recon_accuracy", "recon_completion",
+            "recon_depth_l1_2d")
+    missing = [k for k in need if k not in res]
+    if missing:
+        raise AssertionError(f"evaluation results lack {missing}")
+    if not all(np.isfinite(res[k]) for k in need):
+        raise AssertionError(f"a NaN or infinite metric: "
+                             f"{ {k: res[k] for k in need} }")
+    if not os.path.exists(res["mesh"]) or res["frame_cnt"] != 3:
+        raise AssertionError("no mesh, or not three frames re-rendered")
+    if k1 == 0:
+        raise AssertionError("the re-render launched no ray_topk_packed")
+    if sorted(native._libs) != ["marching", "raster"]:
+        raise AssertionError("the native marching or raster did not run")
+    print(f"{E_LAUNCHES_TAG} {slam_launches + k1}", flush=True)
+    return slam_launches + k1
+
+
+def phase_e_child(dev):
+    """Phase E in a process of its own (``--phases E``), with cuBLAS's
+    fixed workspace set from its start; returns its K1 launches. Fails if
+    the process fails."""
+    import subprocess
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=E_CUBLAS_WORKSPACE)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--phases", "E"], env=env,
+                            stdout=subprocess.PIPE, text=True)
+    launches = None
+    for line in proc.stdout:
+        print(line, end="", flush=True)
+        if line.startswith(E_LAUNCHES_TAG):
+            launches = int(line.split()[-1])
+    if proc.wait() != 0 or launches is None:
+        raise AssertionError(f"phase E failed (exit code {proc.returncode})")
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCD",
+    ap.add_argument("--phases", default="ABCDE",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     phases = ap.parse_args().phases.upper()
     sys.path.insert(0, HERE)
+    if phases == "E":
+        # phase E's deterministic mode needs cuBLAS's fixed workspace from
+        # the process's first CUDA call; it slows every matmul (phase B
+        # ran ~27% slower under it), so phase E runs alone in a process
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", E_CUBLAS_WORKSPACE)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -638,9 +831,10 @@ def main():
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)",
           flush=True)
 
-    if phases != "ABCD":
+    if phases != "ABCDE":
         for name, phase in (("A", phase_a), ("B", phase_b), ("C", phase_c),
-                            ("D", phase_d)):
+                            ("D", phase_d),
+                            ("E", phase_e if phases == "E" else phase_e_child)):
             if name in phases:
                 phase(dev)
         return
@@ -648,6 +842,7 @@ def main():
     launches = phase_b(dev)
     launches.update(phase_c(dev))
     study = phase_d(dev)
+    launches["ray_topk_packed"] += phase_e_child(dev)
     print(json.dumps({"kernels": kernel_records(a, launches)
                       + study_records(study)}))
     print(card_line())

@@ -90,7 +90,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
     unsupported = [
         (mp.get("vis_inside") or tr.get("vis_inside"),
          "in-loop visualisation (vis_inside)"),
-        (cfg.get("wandb"), "the metrics sink (wandb)"),
         (cuda.get("keyframe_host_ring") not in (None, False, "auto"),
          "the host-side keyframe ring (cuda.keyframe_host_ring)"),
         (int(cuda.get("data_parallel", 1) or 1) > 1,

@@ -253,6 +253,68 @@ class Synthetic(BaseDataset):
             col = col * palette[obj_id]
         return np.clip(col, 0.0, 1.0)
 
+    def gt_mesh(self, subdiv=64, sphere_res=48):
+        """Analytic ground-truth surface: walls + interior objects.
+
+        Triangulated for reconstruction eval (tools/eval_recon); exact by
+        construction, so F-score/depth-L1 against it measure the SLAM +
+        meshing stack with no GT uncertainty.
+        """
+        verts, faces = [], []
+
+        def add_quad_grid(origin, du, dv, n):
+            base = sum(len(v) for v in verts)
+            g = []
+            for a in range(n + 1):
+                for b in range(n + 1):
+                    g.append(origin + du * (a / n) + dv * (b / n))
+            f = []
+            for a in range(n):
+                for b in range(n):
+                    i0 = base + a * (n + 1) + b
+                    f.extend([[i0, i0 + 1, i0 + n + 1],
+                              [i0 + 1, i0 + n + 2, i0 + n + 1]])
+            verts.append(np.asarray(g, np.float64))
+            faces.append(np.asarray(f, np.int64))
+
+        def add_box(lo, hi, n=8):
+            lo = np.asarray(lo, np.float64)
+            hi = np.asarray(hi, np.float64)
+            d = hi - lo
+            ex = np.array([d[0], 0, 0])
+            ey = np.array([0, d[1], 0])
+            ez = np.array([0, 0, d[2]])
+            add_quad_grid(lo, ey, ez, n)
+            add_quad_grid(lo + ex, ey, ez, n)
+            add_quad_grid(lo, ex, ez, n)
+            add_quad_grid(lo + ey, ex, ez, n)
+            add_quad_grid(lo, ex, ey, n)
+            add_quad_grid(lo + ez, ex, ey, n)
+
+        add_box(-self.box, self.box, n=subdiv)
+        for cx, cy, cz, r in self.spheres:
+            base = sum(len(v) for v in verts)
+            th = np.linspace(0, np.pi, sphere_res // 2 + 1)
+            ph = np.linspace(0, 2 * np.pi, sphere_res + 1)
+            T, P = np.meshgrid(th, ph, indexing="ij")
+            sv = np.stack([cx + r * np.sin(T) * np.cos(P),
+                           cy + r * np.cos(T),
+                           cz + r * np.sin(T) * np.sin(P)], -1).reshape(-1, 3)
+            nt, nph = T.shape
+            f = []
+            for a in range(nt - 1):
+                for b in range(nph - 1):
+                    i0 = base + a * nph + b
+                    f.extend([[i0, i0 + nph, i0 + 1],
+                              [i0 + 1, i0 + nph, i0 + nph + 1]])
+            verts.append(sv)
+            faces.append(np.asarray(f, np.int64))
+        for lo_hi in self.boxes:
+            add_box(lo_hi[:3], lo_hi[3:], n=8)
+        v = np.concatenate(verts).astype(np.float32)
+        f = np.concatenate(faces).astype(np.int32)
+        return v, f
+
     def _frame_arrays(self, index):
         if index not in self._cache:
             c2w = self.poses[index]

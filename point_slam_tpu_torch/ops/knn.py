@@ -360,7 +360,14 @@ def grid_knn(index, queries: torch.Tensor, k: int = 8):
         d2 = dx * dx + dy * dy + dz * dz
     d2 = torch.where(probe_ok[:, :, None], d2, torch.inf).reshape(nq, 27 * c)
 
-    dists, pos = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    # equal distances (duplicate points) go to the lower candidate slot
+    # first, as jax.lax.top_k orders them: each key is the distance's bit
+    # pattern (monotonic for d2 >= 0) above the slot number
+    shift = (27 * c - 1).bit_length()
+    slot = torch.arange(27 * c, device=q.device)
+    keys = (d2.view(torch.int32).long() << shift) | slot
+    pos = torch.topk(keys, k, dim=1, largest=False, sorted=True)[1]
+    dists = torch.gather(d2, 1, pos)
     win_h = torch.gather(hs, 1, pos // c)
     win_ids = index.pid[win_h, pos % c]
     valid = torch.isfinite(dists)

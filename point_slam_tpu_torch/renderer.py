@@ -211,9 +211,12 @@ def render_img(dec: D.Decoders, cloud: pc.CloudState, index, c2w, intrinsics,
                hw, rc: RenderConfig, gt_depth=None, r_query=None,
                stage_color: bool = True,
                generator: Optional[torch.Generator] = None,
-               exposure_feat: Optional[torch.Tensor] = None):
-    """Full-image render in fixed-size ray chunks. Returns depth (H,W),
-    uncertainty (H,W), color (H,W,3)."""
+               exposure_feat: Optional[torch.Tensor] = None,
+               fill: Optional[torch.Tensor] = None):
+    """Full-image render in chunks of ``rc.ray_batch`` rays. ``fill``: the
+    (n_chunks, 2, 32) random-fill vectors, one pair a chunk; drawn from
+    ``generator`` otherwise. Returns depth (H,W), uncertainty (H,W), color
+    (H,W,3)."""
     from point_slam_tpu_torch.common.camera import rays_full_image
     h, w = hw
     fx, fy, cx, cy = intrinsics
@@ -227,11 +230,12 @@ def render_img(dec: D.Decoders, cloud: pc.CloudState, index, c2w, intrinsics,
           else r_query.reshape(-1).float())
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     outs = []
-    for i in range(0, n, rc.ray_batch):
+    for c, i in enumerate(range(0, n, rc.ray_batch)):
         sl = slice(i, i + rc.ray_batch)
         outs.append(render_rays(dec, cloud.packed, index, rays_o[sl],
                                 rays_d[sl], gt[sl], rq[sl], valid[sl], rc,
                                 stage_color, generator=generator,
+                                fill=None if fill is None else fill[c],
                                 exposure_feat=exposure_feat)[:3])
     depth, unc, col = (torch.cat(o) for o in zip(*outs))
     return depth.reshape(h, w), unc.reshape(h, w), col.reshape(h, w, 3)

@@ -71,7 +71,8 @@ class PointSLAM:
         if output:
             cfg["data"]["output"] = output
         self.output = cfg["data"]["output"]
-        os.makedirs(self.output, exist_ok=True)
+        os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
+        os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
 
         self.dataset = get_dataset(cfg, input_folder)
         self.n_img = len(self.dataset)
@@ -94,14 +95,20 @@ class PointSLAM:
         self.tracker = Tracker(cfg, self.device)
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
+        self.n_done = 0          # frames 0..n_done-1 have poses
         # wall-clock buckets (disjoint; sum to wall_active): track/map the
         # two optimisation phases, wait = blocked on the prefetch thread,
-        # io = direct dataset reads on the main thread (frame 0), other =
-        # the per-frame remainder
+        # io = direct dataset reads on the main thread (frame 0), log = the
+        # metrics sink, checkpoints and point-cloud dumps, other = the
+        # per-frame remainder
         self.timing: Dict[str, float] = {
-            "track": 0.0, "map": 0.0, "io": 0.0, "wait": 0.0, "other": 0.0}
+            "track": 0.0, "map": 0.0, "io": 0.0, "wait": 0.0, "log": 0.0,
+            "other": 0.0}
         # per-frame wall times (seconds, ending in a device sync)
         self.frame_times: Dict[int, Dict[str, float]] = {}
+        from point_slam_tpu_torch.utils.mlog import MetricsLogger
+        self.mlog = MetricsLogger(self.output, cfg,
+                                  name=f"slam_{cfg.get('scene', 'scene')}")
 
     def _frame(self, idx):
         t0 = time.perf_counter()
@@ -109,8 +116,16 @@ class PointSLAM:
         self.timing["io"] += time.perf_counter() - t0
         return color, depth, c2w
 
-    def run(self, stop: Optional[int] = None) -> Dict[str, Any]:
+    def run(self, stop: Optional[int] = None,
+            resume_from: Optional[str] = None) -> Dict[str, Any]:
+        """Track and map frames 0..stop (all of them by default), or, with
+        ``resume_from`` (a checkpoint path), the frames after the
+        checkpoint's."""
         from point_slam_tpu_torch.common import image as image_ops
+        from point_slam_tpu_torch.utils.logger import (load_checkpoint,
+                                                       restore_slam,
+                                                       save_checkpoint)
+        from point_slam_tpu_torch.utils.memory import memory_report
         from point_slam_tpu_torch.utils.prefetch import FramePrefetcher
 
         t_run0 = time.perf_counter()
@@ -118,20 +133,29 @@ class PointSLAM:
         n = self.n_img if stop is None else min(stop + 1, self.n_img)
         every = cfg["mapping"]["every_frame"]
         lazy = cfg["mapping"]["lazy_start"] or 0
+        ckpt_freq = cfg["mapping"].get("ckpt_freq") or 0
         tm = self.timing
 
-        color, depth, gt_c2w = self._frame(0)
-        self.estimate_c2w_list[0] = gt_c2w
-        self.gt_c2w_list[0] = gt_c2w
-        t0 = time.perf_counter()
-        st = self.mapper.map_frame(0, color, depth, gt_c2w, gt_c2w)
-        t_map = time.perf_counter() - t0
-        tm["map"] += t_map
-        self.frame_times[0] = {"track": 0.0, "map": t_map}
-        if self.verbose:
-            print(f"[map] frame 0: +{st['n_added']} locations, "
-                  f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}",
-                  flush=True)
+        if resume_from:
+            start = restore_slam(self, load_checkpoint(resume_from))
+            if self.verbose:
+                print(f"[resume] from {resume_from}: continuing at frame "
+                      f"{start} with {self.mapper.n_points_host} points",
+                      flush=True)
+        else:
+            start = 1
+            color, depth, gt_c2w = self._frame(0)
+            self.estimate_c2w_list[0] = gt_c2w
+            self.gt_c2w_list[0] = gt_c2w
+            t0 = time.perf_counter()
+            st = self.mapper.map_frame(0, color, depth, gt_c2w, gt_c2w)
+            t_map = time.perf_counter() - t0
+            tm["map"] += t_map
+            self.frame_times[0] = {"track": 0.0, "map": t_map}
+            if self.verbose:
+                print(f"[map] frame 0: +{st['n_added']} locations, "
+                      f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}",
+                      flush=True)
 
         inv_scale = float(self.dataset.depth_inv_scale)
         dev = self.device
@@ -147,8 +171,9 @@ class PointSLAM:
             return (i, color_d, depth_d, self.mapper.radius_maps(color_d),
                     c2w)
 
-        prefetcher = FramePrefetcher(self.dataset, depth=4, start=1, stop=n,
-                                     stage=_stage, fetch=self.dataset.wire)
+        prefetcher = FramePrefetcher(self.dataset, depth=4, start=start,
+                                     stop=n, stage=_stage,
+                                     fetch=self.dataset.wire)
         pf_iter = iter(prefetcher)
         while True:
             t0 = time.perf_counter()
@@ -158,7 +183,7 @@ class PointSLAM:
                 break
             tm["wait"] += time.perf_counter() - t0
             t_frame0 = time.perf_counter()
-            acc0 = tm["track"] + tm["map"]
+            acc0 = tm["track"] + tm["map"] + tm["log"]
             self.gt_c2w_list[idx] = gt_c2w
             ef = 1 if (lazy and idx <= lazy) else every
 
@@ -170,9 +195,16 @@ class PointSLAM:
             t_track = time.perf_counter() - t0
             tm["track"] += t_track
             self.estimate_c2w_list[idx] = res["c2w"]
-            if res.get("tracked") and self.verbose:
-                print(f"[track] frame {idx}: loss {res['first_loss']:.2f}->"
-                      f"{res['best_loss']:.2f}", flush=True)
+            if res.get("tracked"):
+                if self.verbose:
+                    print(f"[track] frame {idx}: loss "
+                          f"{res['first_loss']:.2f}->{res['best_loss']:.2f}",
+                          flush=True)
+                t0 = time.perf_counter()
+                self.mlog.log({"idx_track": idx,
+                               "track_first_loss": res["first_loss"],
+                               "track_best_loss": res["best_loss"]})
+                tm["log"] += time.perf_counter() - t0
 
             t_map = 0.0
             if idx % ef == 0 or idx == n - 1:
@@ -192,13 +224,33 @@ class PointSLAM:
                           f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}, "
                           f"col {st['color_loss']:.3f}, "
                           f"pts {st['n_points']}", flush=True)
+                t0 = time.perf_counter()
+                self.mlog.log({"idx_map": idx, **{
+                    k: v for k, v in st.items() if k != "cur_c2w"}})
+                if ckpt_freq and idx % ckpt_freq == 0 and idx != n - 1:
+                    save_checkpoint(os.path.join(
+                        self.output, "ckpts", f"{idx:05d}.npz"), self, idx)
+                # the point-cloud mirror every 300 frames (the files are
+                # written only at the end)
+                if idx > 0 and idx % 300 == 0 and idx != n - 1:
+                    self._dump_point_cloud(log_points_step=idx,
+                                           write_files=False)
+                tm["log"] += time.perf_counter() - t0
             self.frame_times[idx] = {"track": t_track, "map": t_map}
             tm["other"] += (time.perf_counter() - t_frame0
-                            - (tm["track"] + tm["map"] - acc0))
+                            - (tm["track"] + tm["map"] + tm["log"] - acc0))
 
+        self.n_done = n
+        t0 = time.perf_counter()
+        self._dump_point_cloud(log_points_step=n - 1)
+        tm["log"] += time.perf_counter() - t0
         tm["prefetch_fetch"] = prefetcher.time_fetch
         tm["prefetch_stage"] = prefetcher.time_stage
         tm["wall_active"] = time.perf_counter() - t_run0
+        self.mlog.log({"final_n_points": self.mapper.n_points_host,
+                       **{f"time_{k}": v for k, v in tm.items()},
+                       **{f"mem_{k}": v for k, v in
+                          memory_report(self.device).items()}})
         return {
             "n_frames": n,
             "n_points": self.mapper.n_points_host,
@@ -208,3 +260,26 @@ class PointSLAM:
             "estimate_c2w_list": self.estimate_c2w_list[:n],
             "gt_c2w_list": self.gt_c2w_list[:n],
         }
+
+    def _dump_point_cloud(self, log_points_step: int = -1,
+                          write_files: bool = True) -> None:
+        """The surface input points with their colours as
+        final_point_cloud.{npy,ply} and the neural points' positions as
+        npc_cloud.npy (``write_files``), and their mirror to the metrics
+        sink at ``log_points_step`` (>= 0)."""
+        m = self.mapper
+        ni = int(m.cloud.n_inputs)
+        cloud_pos = m.cloud.input_pos[:ni].cpu().numpy()
+        cloud_rgb = m.cloud.input_rgb[:ni].cpu().numpy()
+        if write_files:
+            from point_slam_tpu_torch.utils.ply import write_ply
+            np.save(os.path.join(self.output, "final_point_cloud"),
+                    np.hstack([cloud_pos, cloud_rgb]))
+            np.save(os.path.join(self.output, "npc_cloud"),
+                    m.cloud.pos[:m.n_points_host].cpu().numpy())
+            ply_path = os.path.join(self.output, "final_point_cloud.ply")
+            write_ply(ply_path, cloud_pos, colors=cloud_rgb / 255.0)
+            self.mlog.log({"final_point_cloud_ply": ply_path})
+        if log_points_step >= 0:
+            self.mlog.log_points("input_pc", cloud_pos, cloud_rgb,
+                                 step=log_points_step)

@@ -69,7 +69,30 @@ def test_port_imports_and_renders_without_jax():
     assert "rendered without jax" in res.stdout
 
 
+def _code_strings(path):
+    """The string literals of a Python file outside its docstrings."""
+    import ast
+    tree = ast.parse(open(path).read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
+    """No import of jax or point_slam_tpu; no run-time path into the JAX
+    package or the root native/ sources (docstrings and comments may cite
+    them); the host C++ sources are the port's own copies, built from its
+    native/ into its ops/build/, and its C++/CUDA sources include nothing
+    from outside their own directory."""
+    from point_slam_tpu_torch.utils import native
     pat = re.compile(r"^\s*(import|from)\s+(jax|point_slam_tpu)(\.|\s|$)")
     files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
     assert len(files) > 30
@@ -78,6 +101,27 @@ def test_no_source_file_imports_jax_or_the_jax_package():
         with open(f) as fh:
             bad = [ln for ln in fh if pat.match(ln)]
         assert not bad, (f, bad)
+        bad = [s for s in _code_strings(f)
+               if re.search(r"point_slam_tpu(/|\.)|\.\./|(^|/)native/", s)]
+        assert not bad, (f, bad)
+    assert native._SRC_DIR == os.path.join(PORT, "native")
+    assert native.BUILD_DIR == os.path.join(PORT, "ops", "build")
+    sources = sorted(glob.glob(os.path.join(PORT, "native", "*.cpp")))
+    assert [os.path.basename(s) for s in sources] == ["marching.cpp",
+                                                      "raster.cpp"]
+    for name in ("marching", "raster"):
+        assert os.path.dirname(native.library_path(name)) == \
+            native.BUILD_DIR
+    cxx = sources + glob.glob(os.path.join(PORT, "ops", "csrc", "*.cu"))
+    for f in cxx:
+        for ln in open(f):
+            code = ln.split("//")[0]
+            assert "point_slam_tpu/" not in code, (f, ln)
+            inc = re.match(r'\s*#\s*include\s+"([^"]+)"', code)
+            if inc:
+                assert os.path.exists(os.path.join(os.path.dirname(f),
+                                                   inc.group(1))), (f, ln)
+                assert "/" not in inc.group(1), (f, ln)
 
 
 YAMLS = sorted(os.path.relpath(p, CONFIGS) for p in
@@ -111,7 +155,6 @@ def test_cuda_defaults_hold_only_the_slice_knobs():
 OUT_OF_SLICE = [
     ({"mapping": {"vis_inside": True}}, "vis_inside"),
     ({"tracking": {"vis_inside": True}}, "vis_inside"),
-    ({"wandb": True}, "metrics sink"),
     ({"cuda": {"keyframe_host_ring": True}}, "keyframe ring"),
     ({"cuda": {"data_parallel": 2}}, "data parallelism"),
 ]
@@ -133,13 +176,15 @@ SENSOR_SLICE = [
     ({"rendering": {"sample_near_pcl": True}}, "sample_near_pcl"),
     ({"cuda": {"knn_packed_coords": "fused"}}, "fused"),
     ({"cuda": {"fused_adam": True}}, "row-Adam"),
+    ({"wandb": True}, "metrics sink"),
 ]
 
 
 @pytest.mark.parametrize("override,what", SENSOR_SLICE,
                          ids=[w for _, w in SENSOR_SLICE])
 def test_sensor_slice_paths_pass_the_check(override, what):
-    """The paths the sensor-shaped slice carries are no longer refused."""
+    """The paths the port carries (those of the sensor-shaped slice, and
+    the metrics sink's wandb mirror) are no longer refused."""
     _, cfg = tiny_cfgs(4)
     tconfig.update_recursive(cfg, override)
     tconfig.check_supported(cfg)
@@ -158,10 +203,14 @@ def test_the_slice_config_passes_the_check():
 
 def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
                                                             tmp_path):
-    """Without CUDA, PointSLAM(cfg) and the CLI without --device raise
-    (no silent fall-back to the host); device="cpu" is the way to ask."""
+    """Without CUDA, PointSLAM(cfg), the CLI without --device, the
+    mesh-from-checkpoint CLI without --device, the end-of-run meshing
+    (fuse_renders) and TSDFVolume raise (no silent fall-back to the host);
+    device="cpu" is the way to ask."""
     from point_slam_tpu_torch import run
     from point_slam_tpu_torch.slam import PointSLAM
+    from point_slam_tpu_torch.tools import mesher
+    from point_slam_tpu_torch.tools.tsdf import TSDFVolume
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = tiny_cfgs(4)
     cfg["data"]["output"] = str(tmp_path / "out")
@@ -175,7 +224,21 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main([str(yaml), "--stop", "2", "--output",
                   str(tmp_path / "cli")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesher.main([str(yaml), "--output", str(tmp_path / "cli")])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TSDFVolume((0, 0, 0), (4, 4, 4))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TSDFVolume.from_bounds(np.zeros(3), np.ones(3), voxel=0.5)
+    renders = tmp_path / "renders"
+    renders.mkdir()
+    np.save(renders / "depth_00000.npy", np.ones((4, 4), np.float32))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mesher.fuse_renders(str(renders), None, np.eye(4)[None], 1,
+                            (4.0, 4.0, 1.5, 1.5), voxel=0.5)
     assert PointSLAM(cfg, device="cpu").device.type == "cpu"
+    assert TSDFVolume((0, 0, 0), (4, 4, 4), device="cpu").tsdf.device.type \
+        == "cpu"
 
 
 def test_auto_knobs_resolve_by_device():
