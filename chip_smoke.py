@@ -72,11 +72,28 @@ non-zero with no result line otherwise. In one pass it:
    each step's seconds, the metrics and the peak device memory; fails on
    a missing file, a missing or NaN metric, a non-finite F-score or an ATE
    at or over 2 cm;
-7. prints one JSON line of the kernels, the card again, and last the line
+7. phase F: the disk datasets. F1 builds the image decoders
+   (point_slam_tpu_torch/native/imgcodec.cpp, g++) and requires each
+   fixture of tests/data_torch to decode to the SHA-256 that OpenCV's
+   cv2.imread gave (digests.json), then times the decode of the 680x1200
+   JPEG. F2 writes a TUM-RGBD sequence (frames 0-8 of the synthetic room
+   at configs/TUM_RGBD/freiburg3_office.yaml's camera as 8-bit RGB and
+   16-bit depth PNGs with 5% depth holes; rgb.txt, depth.txt and
+   groundtruth.txt with jittered, offset stamps and one extra entry that
+   the 32 fps pick drops) and runs the port's PointSLAM on that config
+   from disk at tum.yaml's widths (crop_edge 8: 464x624) on the host
+   keyframe ring: 9 frames read, K1 in tracking and mapping, ATE without
+   alignment under 2 cm; prints the reader's ms a frame, the io and wait
+   buckets, the window upload per mapped frame, frames/s, frame times and
+   peak device memory. F3 runs two frames with use_view_direction (with
+   and without encode_viewd): finite losses, and a geometry-stage render
+   equal to one without view directions;
+8. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
-pretrained/middle_fine.npz; the data is the procedural synthetic room.
+pretrained/middle_fine.npz; the data is the procedural synthetic room
+(phase F writes it to disk in the TUM-RGBD layout and reads it back).
 """
 
 import json
@@ -118,6 +135,14 @@ E_CKPT_FREQ = 5
 E_VIEWS_2D = 10
 E_CUBLAS_WORKSPACE = ":4096:8"   # the setting deterministic cuBLAS needs
 E_LAUNCHES_TAG = "[E] ray_topk_packed launches in phase E:"
+# phase F: frames 0-8 of a TUM-RGBD sequence (one more stamp in the lists,
+# which the 32 fps pick drops), written at freiburg3_office's camera
+F_CONFIG = ("TUM_RGBD", "freiburg3_office.yaml")
+F_FRAMES = 9
+F_EXTRA_AFTER = 4           # the dropped entry comes 10 ms after frame 4
+F_HOLES = 0.05              # share of zeroed depth pixels (sensor holes)
+F_DECODE_REPEATS = 20
+F3_ITERS_FIRST = 100        # phase F3's depth cut (the config's: 500)
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
@@ -379,7 +404,7 @@ def phase_a_row_adam(dev, cfg, cloud, n_live, depth_d, c2w_d):
     return out
 
 
-def run_slam(dev, cfg, setup=None):
+def run_slam(dev, cfg, setup=None, input_folder=None):
     """PointSLAM over the config's frames; returns (summary, slam,
     per-phase launch counts, totals). Every kernel count is set to 0 just
     before the run and read just after it. ``setup(slam)`` runs first."""
@@ -389,7 +414,7 @@ def run_slam(dev, cfg, setup=None):
     def launches():
         return {**knn.LAUNCHES, **adam.LAUNCHES}
 
-    slam = PointSLAM(cfg, device=dev)
+    slam = PointSLAM(cfg, input_folder=input_folder, device=dev)
     if setup is not None:
         setup(slam)
     per_phase = {"track": dict.fromkeys(launches(), 0),
@@ -800,10 +825,352 @@ def phase_e_child(dev):
     return launches
 
 
+def write_png(path, img):
+    """A minimal PNG writer: 8-bit RGB (H,W,3) or 16-bit grey (H,W), every
+    row with filter 0, one zlib stream."""
+    import struct
+    import zlib
+    import numpy as np
+    h, w = img.shape[:2]
+    if img.dtype == np.uint16:
+        ctype, bits = 0, 16
+        rows = img.astype(">u2").view(np.uint8).reshape(h, -1)
+    else:
+        ctype, bits = 2, 8
+        rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def quat_xyzw(r):
+    """A rotation matrix's unit quaternion (x, y, z, w)."""
+    import numpy as np
+    t = np.trace(r)
+    if t > 0:
+        s = 0.5 / np.sqrt(t + 1.0)
+        q = ((r[2, 1] - r[1, 2]) * s, (r[0, 2] - r[2, 0]) * s,
+             (r[1, 0] - r[0, 1]) * s, 0.25 / s)
+    else:
+        i = int(np.argmax(np.diag(r)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(1.0 + r[i, i] - r[j, j] - r[k, k])
+        q = [0.0, 0.0, 0.0, (r[k, j] - r[j, k]) / s]
+        q[i] = 0.25 * s
+        q[j] = (r[j, i] + r[i, j]) / s
+        q[k] = (r[k, i] + r[i, k]) / s
+    return np.asarray(q) / np.linalg.norm(q)
+
+
+def tum_config():
+    """configs/TUM_RGBD/freiburg3_office.yaml as the port loads it."""
+    from point_slam_tpu_torch.config import load_config
+    return load_config(os.path.join(HERE, "configs", *F_CONFIG),
+                       os.path.join(HERE, "configs", "point_slam.yaml"))
+
+
+def write_tum_sequence(root, cfg):
+    """Frames 0..F_FRAMES-1 of the synthetic room (room.yaml, phase B's
+    angular step) rendered at ``cfg``'s camera with crop_edge 0, written in
+    the TUM-RGBD layout under ``root``. Returns the dataset-convention
+    poses of the frames written."""
+    import numpy as np
+    from point_slam_tpu_torch.config import load_config
+    from point_slam_tpu_torch.datasets import Synthetic, _flip_yz
+    scfg = load_config(os.path.join(HERE, "configs", "Synthetic",
+                                    "room.yaml"),
+                       os.path.join(HERE, "configs", "point_slam.yaml"))
+    scfg["cam"].update({k: cfg["cam"][k] for k in
+                        ("H", "W", "fx", "fy", "cx", "cy",
+                         "png_depth_scale")})
+    scfg["cam"]["crop_edge"] = 0
+    scfg["synthetic"].update({"n_frames": F_FRAMES, "angular_step": 0.01})
+    ds = Synthetic(scfg)
+    rng = np.random.default_rng(SEED)
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    head = ["# timestamp filename"]
+    rgb, dep, gt = list(head), list(head), [
+        "# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    order = list(range(F_FRAMES))
+    order.insert(F_EXTRA_AFTER + 1, F_EXTRA_AFTER)
+    t_prev = None
+    poses = []
+    for n, i in enumerate(order):
+        extra = n == F_EXTRA_AFTER + 1
+        t = (t_prev + 0.010 if extra else
+             1341845688.0 + i / 30.0 + rng.uniform(-1e-3, 1e-3))
+        if not extra:
+            t_prev = t
+        td = t + rng.uniform(0.005, 0.015)
+        tp = t + rng.uniform(0.003, 0.008)
+        _, packed, _ = ds.wire(i)
+        d16 = np.ascontiguousarray(packed[..., 3:5]).view(np.uint16)[..., 0]
+        d16 = np.where(rng.uniform(size=d16.shape) < F_HOLES, 0, d16) \
+            .astype(np.uint16)
+        write_png(os.path.join(root, "rgb", f"{t:.6f}.png"),
+                  np.ascontiguousarray(packed[..., :3]))
+        write_png(os.path.join(root, "depth", f"{td:.6f}.png"), d16)
+        rgb.append(f"{t:.6f} rgb/{t:.6f}.png")
+        dep.append(f"{td:.6f} depth/{td:.6f}.png")
+        pose = _flip_yz(ds.poses[i])
+        gt.append(f"{tp:.6f} " + " ".join(
+            f"{v:.9f}" for v in [*pose[:3, 3], *quat_xyzw(pose[:3, :3])]))
+        if not extra:
+            poses.append(pose)
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", dep),
+                        ("groundtruth.txt", gt)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return poses
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_f1():
+    """The image decoders built on this machine against the digests of
+    OpenCV's decodes; the decode time of a Replica-sized JPEG."""
+    import hashlib
+    import numpy as np
+    from point_slam_tpu_torch.utils import imgcodec, native
+    data = os.path.join(HERE, "tests", "data_torch")
+    with open(os.path.join(data, "digests.json")) as f:
+        rec = json.load(f)
+    t0 = time.perf_counter()
+    native.load("imgcodec")
+    built = time.perf_counter() - t0
+    for name, want in sorted(rec["files"].items()):
+        img = imgcodec.imread(os.path.join(data, name),
+                              unchanged=want["unchanged"])
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()) \
+            .hexdigest()
+        if (digest != want["sha256"] or list(img.shape) != want["shape"]
+                or str(img.dtype) != want["dtype"]):
+            raise AssertionError(f"{name} decodes to other bytes than "
+                                 f"OpenCV {rec['opencv']}'s cv2.imread")
+    big = os.path.join(data, "room_680x1200_q95.jpg")
+    times = []
+    for _ in range(F_DECODE_REPEATS + 1):
+        t0 = time.perf_counter()
+        imgcodec.imread(big)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times[1:]))
+    print(f"[F1] imgcodec built with g++ in {built:.2f} s; "
+          f"{len(rec['files'])} fixtures byte-equal to OpenCV "
+          f"{rec['opencv']}'s cv2.imread (SHA-256); decode of the 680x1200 "
+          f"q95 JPEG {ms:.3f} ms (median of {F_DECODE_REPEATS}, host); "
+          f"card {card_line()}", flush=True)
+    return ms
+
+
+def phase_f2(dev, root):
+    """PointSLAM from a TUM-RGBD directory on the host keyframe ring."""
+    import numpy as np
+    import torch
+    from point_slam_tpu_torch.datasets import get_dataset
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+    from point_slam_tpu_torch.utils.memory import memory_report
+
+    cfg = tum_config()
+    print(f"[F] config {'/'.join(F_CONFIG)}: cam {cfg['cam']['H']}x"
+          f"{cfg['cam']['W']} fx {cfg['cam']['fx']} fy {cfg['cam']['fy']} cx "
+          f"{cfg['cam']['cx']} cy {cfg['cam']['cy']} png_depth_scale "
+          f"{cfg['cam']['png_depth_scale']} crop_edge "
+          f"{cfg['cam']['crop_edge']}; tracking {cfg['tracking']['pixels']} "
+          f"px x {cfg['tracking']['iters']}, mapping "
+          f"{cfg['mapping']['pixels']} px x {cfg['mapping']['iters']} (first"
+          f" {cfg['mapping']['iters_first']}), every "
+          f"{cfg['mapping']['every_frame']} frames, window "
+          f"{cfg['mapping']['mapping_window_size']}, sample_with_color_grad "
+          f"{cfg['tracking']['sample_with_color_grad']}", flush=True)
+    print(f"[F] cut: the sequence to frames 0-{F_FRAMES - 1}; "
+          f"mapping.lazy_start {cfg['mapping']['lazy_start']} -> 0 (the "
+          f"config maps every frame up to frame "
+          f"{cfg['mapping']['lazy_start']}, then every "
+          f"{cfg['mapping']['every_frame']}nd)", flush=True)
+    t0 = time.perf_counter()
+    poses = write_tum_sequence(root, cfg)
+    print(f"[F] wrote the TUM-RGBD sequence ({F_FRAMES + 1} stamps) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cfg["mapping"]["lazy_start"] = 0
+    cfg["cuda"]["keyframe_host_ring"] = True
+    cfg["verbose"] = True
+    cfg["data"]["output"] = os.path.join(HERE, "output", "chip_smoke_tum")
+
+    probe = get_dataset(cfg, root)
+    if len(probe) != F_FRAMES:
+        raise AssertionError(f"the reader kept {len(probe)} frames, not "
+                             f"{F_FRAMES}")
+    rel = [np.linalg.inv(poses[0]) @ p for p in poses]
+    err = max(float(np.abs(probe.poses[i][:3] - (rel[i] * [1, -1, -1, 1])
+                           [:3]).max()) for i in range(F_FRAMES))
+    read_ms = []
+    for i in range(F_FRAMES):
+        t0 = time.perf_counter()
+        _, packed, _ = probe.wire(i)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    e = cfg["cam"]["crop_edge"]
+    shape = (cfg["cam"]["H"] - 2 * e, cfg["cam"]["W"] - 2 * e, 5)
+    print(f"[F] reader: {len(probe)} frames of {packed.shape}, the 32 fps "
+          f"pick dropped the extra stamp; poses within {err:.2e} of the "
+          f"written ones; decode + wire {np.median(read_ms):.3f} ms a frame "
+          f"(median, host)", flush=True)
+    if packed.shape != shape or err > 1e-6:
+        raise AssertionError(f"wire frame {packed.shape} (want {shape}) or "
+                             f"pose error {err}")
+
+    uploads = []
+
+    def timed_uploads(slam):
+        store = slam.mapper.store
+        if not store.host_mode:
+            raise AssertionError("the keyframe store is not on the host ring")
+        inner = store._upload_window
+
+        def upload(*a, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            _sync(dev)
+            uploads.append((time.perf_counter() - t0) * 1e3)
+            return out
+        store._upload_window = upload
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    summary, slam, per_phase, totals = run_slam(dev, cfg, timed_uploads,
+                                                input_folder=root)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    k1 = "ray_topk_packed"
+    print(f"[F2] launches: tracking {per_phase['track']}; mapping "
+          f"{per_phase['map']}", flush=True)
+    if summary["n_frames"] != F_FRAMES:
+        raise AssertionError(f"{summary['n_frames']} frames run")
+    if per_phase["track"][k1] == 0 or per_phase["map"][k1] == 0:
+        raise AssertionError(f"{k1} did not run in both tracking and mapping")
+    if not slam.mapper.store.host_mode or not uploads:
+        raise AssertionError("no window went through the host ring")
+    est = summary["estimate_c2w_list"]
+    if not np.isfinite(est).all():
+        raise AssertionError("non-finite poses")
+    ate = evaluate_ate(summary["gt_c2w_list"], est, align=False)[
+        "absolute_translational_error.rmse"]
+    ft = summary["frame_times"]
+    tracked = [ft[i]["track"] for i in ft if ft[i]["track"]]
+    mapped = [ft[i]["map"] for i in ft if ft[i]["map"]]
+    busy = sum(ft[i]["track"] + ft[i]["map"] for i in range(1, F_FRAMES))
+    tm = summary["timing"]
+    mem = memory_report(dev).get("device_peak_bytes_in_use", 0) / 2 ** 30
+    print(f"[F2] {F_FRAMES} frames from disk on the host ring: ATE no-align "
+          f"{ate * 100:.4f} cm; keyframes {summary['keyframes']}; mapped "
+          f"{sorted(slam.mapper.frame_stats)}; points {summary['n_points']}",
+          flush=True)
+    print(f"[F2] io {tm['io']:.4f} s, wait {tm['wait']:.4f} s, prefetch "
+          f"fetch {tm['prefetch_fetch']:.4f} s; window upload "
+          f"{np.mean(uploads):.3f} ms a window ({len(uploads)} windows of "
+          f"{tuple(slam.mapper.store._staging.shape)} u8 over "
+          f"{len(slam.mapper.frame_stats)} mapped frames, the last one "
+          f"refined); frames 1-"
+          f"{F_FRAMES - 1} {(F_FRAMES - 1) / busy:.4f} frames/s; tracked "
+          f"frame p50 {np.median(tracked):.4f} s, mapped frame p50 "
+          f"{np.median(mapped):.4f} s (frame 0 {ft[0]['map']:.4f} s); run "
+          f"wall {wall:.2f} s; peak device memory {mem:.3f} GiB; card "
+          f"{card_line()}", flush=True)
+    if not ate < 0.02:
+        raise AssertionError(f"ATE no-align {ate} m >= 2 cm")
+    return totals
+
+
+def phase_f3(dev, root):
+    """Two frames with view directions, with and without encode_viewd."""
+    import numpy as np
+    import torch
+    from point_slam_tpu_torch import renderer as R
+    from point_slam_tpu_torch.slam import PointSLAM
+
+    print(f"[F3] cut: frames 0-1; mapping.iters_first 500 -> "
+          f"{F3_ITERS_FIRST}", flush=True)
+    for encode in (True, False):
+        cfg = tum_config()
+        cfg["model"].update({"use_view_direction": True,
+                             "encode_viewd": encode})
+        cfg["mapping"].update({"lazy_start": 0,
+                               "iters_first": F3_ITERS_FIRST})
+        cfg["data"]["output"] = os.path.join(HERE, "output",
+                                             "chip_smoke_viewd")
+        cfg["verbose"] = False
+        slam = PointSLAM(cfg, input_folder=root, device=dev)
+        summary = slam.run(stop=1)
+        st = slam.mapper.frame_stats
+        losses = [st[i][k] for i in st for k in ("geo_loss", "color_loss")]
+        if not np.isfinite(losses).all() or \
+                not np.isfinite(summary["estimate_c2w_list"]).all():
+            raise AssertionError(f"non-finite losses or poses: {losses}")
+        m = slam.mapper
+        _, _, depth, c2w = slam.dataset[1]
+        hw = depth.shape
+        rc = R.make_render_config(cfg, 0.1, dev)
+        gen = torch.Generator(device=dev)
+        fill = R.draw_fill(gen.manual_seed(SEED), dev)[None].repeat(
+            -(-hw[0] * hw[1] // rc.ray_batch), 1, 1)
+        cam = slam.cfg["cam"]                   # after the crop
+        intr = (cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+        args = (m.decoders, m.cloud, m.index, torch.as_tensor(
+            summary["estimate_c2w_list"][1], device=dev), intr, hw)
+        kw = dict(gt_depth=torch.as_tensor(depth, device=dev), fill=fill)
+        with_v = R.render_img(*args, rc, stage_color=False, **kw)
+        without = R.render_img(*args, rc._replace(use_view_direction=False),
+                               stage_color=False, **kw)
+        colour = R.render_img(*args, rc, stage_color=True, **kw)[2]
+        same = all(torch.equal(a, b) for a, b in zip(with_v, without))
+        print(f"[F3] use_view_direction with encode_viewd {encode}: colour "
+              f"MLP input {m.decoders.col.pts_linears[0].in_features} wide; "
+              f"losses {[round(v, 4) for v in losses]}; geometry-stage "
+              f"render equal to one without view directions: {same}; "
+              f"colour render finite: "
+              f"{bool(torch.isfinite(colour).all())}", flush=True)
+        if not same or not torch.isfinite(colour).all():
+            raise AssertionError("view directions changed the geometry "
+                                 "render, or a non-finite colour")
+
+
+def phase_f(dev):
+    """The disk datasets: decoders (F1), a TUM-RGBD run on the host ring
+    (F2), view directions (F3). Returns F2's kernel launches."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    decode_ms = phase_f1()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tum_")
+    try:
+        totals = phase_f2(dev, root)
+        phase_f3(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[F] phase F wall {time.perf_counter() - t0:.2f} s "
+          f"(JPEG decode {decode_ms:.3f} ms)", flush=True)
+    return totals
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDE",
+    ap.add_argument("--phases", default="ABCDEF",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     phases = ap.parse_args().phases.upper()
@@ -831,10 +1198,11 @@ def main():
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)",
           flush=True)
 
-    if phases != "ABCDE":
+    if phases != "ABCDEF":
         for name, phase in (("A", phase_a), ("B", phase_b), ("C", phase_c),
                             ("D", phase_d),
-                            ("E", phase_e if phases == "E" else phase_e_child)):
+                            ("E", phase_e if phases == "E" else phase_e_child),
+                            ("F", phase_f)):
             if name in phases:
                 phase(dev)
         return
@@ -843,6 +1211,9 @@ def main():
     launches.update(phase_c(dev))
     study = phase_d(dev)
     launches["ray_topk_packed"] += phase_e_child(dev)
+    f_launches = phase_f(dev)
+    for name in launches:
+        launches[name] += f_launches.get(name, 0)
     print(json.dumps({"kernels": kernel_records(a, launches)
                       + study_records(study)}))
     print(card_line())

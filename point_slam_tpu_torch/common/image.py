@@ -122,3 +122,101 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.max(torch.where(mask, x, -torch.inf))
+
+
+# ---------------------------------------------------------------------------
+# Host-side resampling for the disk readers (numpy), with OpenCV's mappings:
+# the readers of the JAX package call cv2.resize and cv2.undistort, and the
+# port has to give the same bytes without OpenCV.
+
+def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` (INTER_LINEAR) of a float (H,W[,C])
+    image: half-pixel centres, source x = (dx+0.5)*scale-0.5 rounded to f32,
+    weights (1-f, f) in f32, applied in the image's precision; columns
+    clamp at the edges with weight 1, rows through the same weights on the
+    clamped row. Exactly 2x smaller in both axes is a 2x2 mean, as OpenCV
+    switches to INTER_AREA there. Same size returns ``img``."""
+    sh, sw = img.shape[:2]
+    if (sh, sw) == (h, w):
+        return img
+    sx_scale, sy_scale = 1.0 / (w / sw), 1.0 / (h / sh)
+    if sx_scale == 2.0 and sy_scale == 2.0:
+        s = img[:2 * h, :2 * w]
+        return ((s[0::2, 0::2] + s[0::2, 1::2]) + s[1::2, 0::2]
+                + s[1::2, 1::2]) * img.dtype.type(0.25)
+
+    def taps(n_dst, n_src, scale, clamp):
+        f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+        i0 = np.floor(f).astype(np.int64)
+        f = f - i0.astype(np.float32)
+        if clamp:       # columns: outside the image the edge, weight 1
+            lo, hi = i0 < 0, i0 >= n_src - 1
+            f = np.where(lo | hi, np.float32(0.0), f)
+            i0 = np.where(lo, 0, np.where(hi, n_src - 1, i0))
+        w0 = (np.float32(1.0) - f).astype(img.dtype)
+        return (np.clip(i0, 0, n_src - 1), np.clip(i0 + 1, 0, n_src - 1),
+                w0, f.astype(img.dtype))
+
+    x0, x1, wx0, wx1 = taps(w, sw, sx_scale, True)
+    y0, y1, wy0, wy1 = taps(h, sh, sy_scale, False)
+    shape = (1, -1) + (1,) * (img.ndim - 2)
+    # OpenCV's last columns (no right neighbour) take the edge pixel alone
+    edge = (x0 == sw - 1).reshape(shape)
+    rows = np.where(edge, img[:, x0], img[:, x0] * wx0.reshape(shape)
+                    + img[:, x1] * wx1.reshape(shape))
+    shape_y = (-1,) + (1,) * (img.ndim - 1)
+    return rows[y0] * wy0.reshape(shape_y) + rows[y1] * wy1.reshape(shape_y)
+
+
+def resize_nearest(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_NEAREST)``: source
+    index floor(dst * (1 / (dst_size / src_size))), clamped."""
+    sh, sw = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))), sh - 1)
+    return img[ys.astype(np.int64)][:, xs.astype(np.int64)]
+
+
+def undistort(img: np.ndarray, fx: float, fy: float, cx: float, cy: float,
+              dist) -> np.ndarray:
+    """``cv2.undistort(img, K, dist)`` of a u8 (H,W[,C]) image with new
+    K = K and R = I: the forward model (k1, k2, p1, p2[, k3]) maps each
+    output pixel to a source point, computed in stripes of 4096 / W rows
+    with the principal point shifted per stripe as OpenCV does, quantised
+    to 1/32 px (INTER_BITS 5, round half to even); then bilinear taps with
+    15-bit fixed-point weights that sum to 32768, taps outside the image
+    counting as 0 (BORDER_CONSTANT)."""
+    d = np.zeros(5)
+    dist = np.asarray(dist, np.float64).ravel()
+    d[:min(dist.size, 5)] = dist[:5]
+    k1, k2, p1, p2, k3 = d
+    h, w = img.shape[:2]
+    stripe = min(max(1, 4096 // max(w, 1)), h)
+    rows = np.arange(h)
+    local = (rows % stripe).astype(np.float64)
+    cy_s = cy - (rows - rows % stripe)          # the stripe's new-K cy
+    x = ((np.arange(w) * (1.0 / fx) + (-cx / fx))[None, :]
+         * np.ones((h, 1)))
+    y = (local * (1.0 / fy) + (-cy_s / fy))[:, None] * np.ones((1, w))
+    x2, y2 = x * x, y * y
+    r2 = x2 + y2
+    xy2 = 2 * x * y
+    kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
+    xd = x * kr + p1 * xy2 + p2 * (r2 + 2 * x2)
+    yd = y * kr + p1 * (r2 + 2 * y2) + p2 * xy2
+    u = fx * xd + cx
+    v = fy * yd + cy
+    iu = np.rint(u * 32.0).astype(np.int64)
+    iv = np.rint(v * 32.0).astype(np.int64)
+    sx, ax = iu >> 5, iu & 31
+    sy, ay = iv >> 5, iv & 31
+    src = img.reshape(h, w, -1).astype(np.int64)
+    out = np.zeros(src.shape, np.int64)
+    for dy, wy in ((0, 32 - ay), (1, ay)):
+        for dx, wx in ((0, 32 - ax), (1, ax)):
+            yy, xx = sy + dy, sx + dx
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            tap = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+            out += np.where(ok[..., None], tap, 0) * (wy * wx * 32)[..., None]
+    out = np.clip((out + (1 << 14)) >> 15, 0, 255).astype(np.uint8)
+    return out.reshape(img.shape)

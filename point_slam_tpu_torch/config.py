@@ -33,10 +33,23 @@ CUDA_DEFAULTS: Dict[str, Any] = {
                                           # | 'fused' (coords|ids in one
                                           # i32 plane)
         "keyframe_device_budget": 1024,   # keyframes held on the device
+        "keyframe_host_ring": "auto",     # keyframe images in host memory,
+                                          # the window uploaded per mapped
+                                          # frame: True | False | 'auto'
+                                          # (host when the expected keyframe
+                                          # count exceeds the device budget)
+        "data_parallel": 1,               # devices a ray batch is split over
         "fused_adam": False,              # the fused row-Adam kernel for
                                           # the packed (CAP, 72) leaf
     },
 }
+
+# ``tpu:`` keys of the JAX package's configs with the same name and meaning
+# under ``cuda:``
+TPU_SHARED_KEYS = ("point_capacity_init", "point_capacity_max",
+                   "grid_table_size", "grid_max_per_cell",
+                   "keyframe_device_budget", "keyframe_host_ring",
+                   "data_parallel")
 
 
 def update_recursive(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> None:
@@ -50,6 +63,16 @@ def update_recursive(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> None:
             dict1[k] = v
 
 
+def _take_tpu_keys(raw: Dict[str, Any]) -> Dict[str, Any]:
+    """One yaml's tree with its shared ``tpu:`` keys copied under
+    ``cuda:``, below that yaml's own ``cuda:`` keys."""
+    tpu = raw.get("tpu") or {}
+    shared = {k: tpu[k] for k in TPU_SHARED_KEYS if k in tpu}
+    if not shared:
+        return raw
+    return {**raw, "cuda": {**shared, **(raw.get("cuda") or {})}}
+
+
 def load_config(path: str, default_path: Optional[str] = None
                 ) -> Dict[str, Any]:
     """Load a YAML config, following its ``inherit_from`` chain.
@@ -58,7 +81,7 @@ def load_config(path: str, default_path: Optional[str] = None
     the repository root, so configs work from any CWD.
     """
     with open(path, "r") as f:
-        cfg_special = yaml.safe_load(f) or {}
+        cfg_special = _take_tpu_keys(yaml.safe_load(f) or {})
 
     inherit_from = cfg_special.get("inherit_from")
     if inherit_from is not None:
@@ -71,7 +94,7 @@ def load_config(path: str, default_path: Optional[str] = None
         cfg = load_config(parent, default_path)
     elif default_path is not None:
         with open(default_path, "r") as f:
-            cfg = yaml.safe_load(f) or {}
+            cfg = _take_tpu_keys(yaml.safe_load(f) or {})
         base = copy.deepcopy(CUDA_DEFAULTS)
         update_recursive(base, cfg)
         cfg = base
@@ -90,8 +113,6 @@ def check_supported(cfg: Dict[str, Any]) -> None:
     unsupported = [
         (mp.get("vis_inside") or tr.get("vis_inside"),
          "in-loop visualisation (vis_inside)"),
-        (cuda.get("keyframe_host_ring") not in (None, False, "auto"),
-         "the host-side keyframe ring (cuda.keyframe_host_ring)"),
         (int(cuda.get("data_parallel", 1) or 1) > 1,
          "data parallelism (cuda.data_parallel > 1)"),
     ]

@@ -1,8 +1,14 @@
-"""Host-side RGB-D frames (numpy): the procedural synthetic scene and the
-sensor-quantised wire format.
+"""Host-side RGB-D frames (numpy): the Replica, ScanNet and TUM-RGBD disk
+readers, the procedural synthetic scene and the sensor-quantised wire
+format.
 
-Copied from ``point_slam_tpu.datasets`` (the ``BaseDataset`` wire path and
-the ``Synthetic`` reader) so the port needs nothing from the JAX package.
+The port of ``point_slam_tpu.datasets``, with its reads in the same order:
+decode (BGR u8), undistort the u8 colour (TUM's ``cam.distortion``),
+BGR -> RGB / 255 in f64, resize the colour to the depth's size, resize
+both to ``cam.crop_size`` (bilinear colour, nearest depth), crop
+``crop_edge``, and the Y/Z pose-axis flip of every loader. The JAX readers
+call OpenCV for the decode and the resampling; the port calls its own
+(``utils/imgcodec.py``, ``common/image.py``), which give OpenCV's bytes.
 Every frame is sensor-quantised: u8 colour and u16 depth at
 ``png_depth_scale``. ``wire(i)`` returns the compact (H,W,5) u8 array for
 the host->device transfer; ``__getitem__`` returns its f32 dequantisation,
@@ -11,9 +17,14 @@ so the host and device paths see bit-identical values.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import glob
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from point_slam_tpu_torch.common import image
+from point_slam_tpu_torch.utils.imgcodec import imread
 
 
 def dequantize_wire(packed: np.ndarray, inv_scale: np.float32):
@@ -26,6 +37,16 @@ def dequantize_wire(packed: np.ndarray, inv_scale: np.float32):
     return color, du16.astype(np.float32) * inv_scale
 
 
+def _flip_yz(c2w: np.ndarray) -> np.ndarray:
+    """Rotate the camera frame 180 deg about X: the codebase convention is
+    x right, y up, z backward while the datasets store y down / z
+    forward."""
+    c2w = c2w.copy()
+    c2w[:3, 1] *= -1
+    c2w[:3, 2] *= -1
+    return c2w
+
+
 class BaseDataset:
     def __init__(self, cfg, input_folder: Optional[str] = None):
         self.name = cfg["dataset"]
@@ -34,12 +55,44 @@ class BaseDataset:
         self.H, self.W = cam["H"], cam["W"]
         self.fx, self.fy, self.cx, self.cy = (cam["fx"], cam["fy"],
                                               cam["cx"], cam["cy"])
+        self.distortion = (np.array(cam["distortion"]) if "distortion" in cam
+                           else None)
+        self.crop_size = cam.get("crop_size")
         self.crop_edge = cam["crop_edge"] or 0
         self.input_folder = input_folder or cfg["data"]["input_folder"]
+        self.color_paths: List[str] = []
+        self.depth_paths: List[str] = []
         self.poses = []
 
     def __len__(self):
         return self.n_img
+
+    def _read_color(self, path):
+        img = imread(path)
+        if self.distortion is not None:
+            img = image.undistort(img, self.fx, self.fy, self.cx, self.cy,
+                                  self.distortion)
+        return img[..., ::-1].astype(np.float64) / 255.0
+
+    def _read_depth(self, path):
+        return imread(path, unchanged=True).astype(np.float32) \
+            / self.png_depth_scale
+
+    def _frame_arrays(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Preprocessed (color f32, depth f32) before wire quantisation."""
+        color = self._read_color(self.color_paths[index])
+        depth = self._read_depth(self.depth_paths[index])
+        h, w = depth.shape
+        color = image.resize_linear(color, w, h)
+        if self.crop_size is not None:
+            ch, cw = self.crop_size
+            color = image.resize_linear(color, cw, ch)
+            depth = image.resize_nearest(depth, cw, ch)
+        e = self.crop_edge
+        if e > 0:
+            color = color[e:-e, e:-e]
+            depth = depth[e:-e, e:-e]
+        return color.astype(np.float32), depth.astype(np.float32)
 
     @property
     def depth_inv_scale(self) -> np.float32:
@@ -76,6 +129,116 @@ class BaseDataset:
         return index, color, depth, pose
 
 
+class Replica(BaseDataset):
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        self.color_paths = sorted(
+            glob.glob(f"{self.input_folder}/results/frame*.jpg"))
+        self.depth_paths = sorted(
+            glob.glob(f"{self.input_folder}/results/depth*.png"))
+        self.n_img = len(self.color_paths)
+        with open(f"{self.input_folder}/traj.txt") as f:
+            lines = f.readlines()
+        self.poses = [
+            _flip_yz(np.array(list(map(float, lines[i].split())))
+                     .reshape(4, 4))
+            for i in range(self.n_img)]
+
+
+class ScanNet(BaseDataset):
+    def __init__(self, cfg, input_folder=None):
+        super().__init__(cfg, input_folder)
+        self.input_folder = os.path.join(self.input_folder, "frames")
+
+        def bynum(p):
+            return int(os.path.basename(p).split(".")[0])
+
+        def listed(sub, ext):
+            return sorted(glob.glob(os.path.join(self.input_folder, sub,
+                                                 f"*.{ext}")), key=bynum)
+
+        self.color_paths = listed("color", "jpg")
+        self.depth_paths = listed("depth", "png")
+        self.n_img = len(self.color_paths)
+        self.poses = [_flip_yz(np.loadtxt(p).reshape(4, 4))
+                      for p in listed("pose", "txt")]
+
+
+def quat_to_matrix(q: np.ndarray) -> np.ndarray:
+    """(x, y, z, w) quaternion -> 3x3 rotation, normalised first, as
+    ``scipy.spatial.transform.Rotation.from_quat(q).as_matrix()``."""
+    x, y, z, w = np.asarray(q, np.float64) / np.linalg.norm(q)
+    return np.array([
+        [x * x - y * y - z * z + w * w, 2 * (x * y - z * w),
+         2 * (x * z + y * w)],
+        [2 * (x * y + z * w), -x * x + y * y - z * z + w * w,
+         2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w),
+         -x * x - y * y + z * z + w * w]])
+
+
+class TUM_RGBD(BaseDataset):
+    def __init__(self, cfg, input_folder=None, frame_rate=32):
+        super().__init__(cfg, input_folder)
+        self.color_paths, self.depth_paths, self.poses = self._load(
+            self.input_folder, frame_rate)
+        self.n_img = len(self.color_paths)
+
+    @staticmethod
+    def _parse_list(path, skiprows=0):
+        return np.loadtxt(path, delimiter=" ", dtype=np.str_,
+                          skiprows=skiprows)
+
+    @staticmethod
+    def _associate(t_img, t_depth, t_pose, max_dt=0.08):
+        """(rgb, depth, pose) row triples whose nearest depth and pose
+        stamps lie within ``max_dt`` of the rgb stamp."""
+        out = []
+        for i, t in enumerate(t_img):
+            j = np.argmin(np.abs(t_depth - t))
+            k = np.argmin(np.abs(t_pose - t))
+            if abs(t_depth[j] - t) < max_dt and abs(t_pose[k] - t) < max_dt:
+                out.append((i, j, k))
+        return out
+
+    def _load(self, folder, frame_rate):
+        """Associated frames picked at most ``frame_rate`` a second, poses
+        relative to the first (made the identity), then flipped."""
+        gt = os.path.join(folder, "groundtruth.txt")
+        pose_file = gt if os.path.isfile(gt) else os.path.join(folder,
+                                                                "pose.txt")
+        img_data = self._parse_list(os.path.join(folder, "rgb.txt"))
+        depth_data = self._parse_list(os.path.join(folder, "depth.txt"))
+        pose_data = self._parse_list(pose_file, skiprows=1)
+        pose_vecs = pose_data[:, 1:].astype(np.float64)
+        t_img = img_data[:, 0].astype(np.float64)
+        t_depth = depth_data[:, 0].astype(np.float64)
+        t_pose = pose_data[:, 0].astype(np.float64)
+        assoc = self._associate(t_img, t_depth, t_pose)
+
+        picks = [0]
+        for i in range(1, len(assoc)):
+            t0 = t_img[assoc[picks[-1]][0]]
+            t1 = t_img[assoc[i][0]]
+            if t1 - t0 > 1.0 / frame_rate:
+                picks.append(i)
+
+        images, depths, poses = [], [], []
+        inv_first = None
+        for ix in picks:
+            i, j, k = assoc[ix]
+            images.append(os.path.join(folder, img_data[i, 1]))
+            depths.append(os.path.join(folder, depth_data[j, 1]))
+            c2w = np.eye(4)
+            c2w[:3, :3] = quat_to_matrix(pose_vecs[k][3:])
+            c2w[:3, 3] = pose_vecs[k][:3]
+            if inv_first is None:
+                inv_first = np.linalg.inv(c2w)
+                c2w = np.eye(4)
+            else:
+                c2w = inv_first @ c2w
+            poses.append(_flip_yz(c2w))
+        return images, depths, poses
 
 
 class Synthetic(BaseDataset):
@@ -355,9 +518,13 @@ class Synthetic(BaseDataset):
         return color, depth
 
 
+dataset_dict = {
+    "replica": Replica,
+    "scannet": ScanNet,
+    "tumrgbd": TUM_RGBD,
+    "synthetic": Synthetic,
+}
+
+
 def get_dataset(cfg, input_folder=None):
-    if cfg["dataset"] != "synthetic":
-        raise NotImplementedError(
-            f"point_slam_tpu_torch reads only the synthetic scene so far, "
-            f"not {cfg['dataset']!r}; run point_slam_tpu for disk datasets")
-    return Synthetic(cfg, input_folder)
+    return dataset_dict[cfg["dataset"]](cfg, input_folder)

@@ -51,6 +51,9 @@ def decoders_from_numpy(tree: Mapping[str, Any], cfg: Dict[str, Any],
     with torch.no_grad():
         dec.col.embedder_rel_B.copy_(_t(col["embedder_rel_B"], "cpu",
                                         torch.float32))
+        if "embedder_view_B" in col:
+            dec.col.embedder_view_B.copy_(_t(col["embedder_view_B"], "cpu",
+                                             torch.float32))
     return dec.to(device)
 
 

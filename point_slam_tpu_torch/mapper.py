@@ -57,23 +57,30 @@ class MapperStatic(NamedTuple):
 
 
 class KeyframeStore:
-    """Keyframe database: poses and exposure latents on the host, images on
-    the device as (H,W,5) u8 wire frames in one ring tensor. r_query is
-    recomputed from the decoded colour when a window is gathered; bundle
-    adjustment writes poses back with ``set_est_c2w``."""
+    """Keyframe database: poses and exposure latents on the host, images as
+    (H,W,5) u8 wire frames in one of two places:
+
+    * the device ring (default): one (capacity, H, W, 5) tensor on the
+      device; a window is a device gather.
+    * the host ring (``cuda.keyframe_host_ring``: true, or 'auto' when the
+      expected keyframe count exceeds ``cuda.keyframe_device_budget``):
+      each wire frame is fetched to host memory once, at ``append``; a
+      window is written into one (f_max, H, W, 5) staging buffer (pinned on
+      CUDA) and uploaded with one host->device copy.
+
+    Both decode the same wire bytes, so their windows are bit-equal.
+    r_query is recomputed from the decoded colour when a window is
+    gathered; bundle adjustment writes poses back with ``set_est_c2w``."""
 
     def __init__(self, cfg, h: int, w: int, n_img: int, keyframe_every: int,
                  device):
         cu = cfg["cuda"]
         expected = n_img // max(keyframe_every, 1) + 4
         budget = int(cu["keyframe_device_budget"])
-        if expected > budget:
-            raise NotImplementedError(
-                f"{expected} keyframes exceed cuda.keyframe_device_budget="
-                f"{budget}; point_slam_tpu_torch does not implement the host "
-                "keyframe ring yet")
+        mode = cu["keyframe_host_ring"]
+        self.host_mode = expected > budget if mode == "auto" else bool(mode)
         self.h, self.w = h, w
-        self.device = device
+        self.device = torch.device(device)
         self.est_c2w: List[np.ndarray] = []
         self.exposure_dim = int(cfg["model"]["exposure_dim"])
         self.exposure: List[np.ndarray] = []
@@ -83,18 +90,29 @@ class KeyframeStore:
         self.rq_args = (pcfg["radius_add_max"], pcfg["radius_add_min"],
                         pcfg["radius_query_ratio"], pcfg["color_grad_threshold"])
         self.rq_fixed = pcfg["radius_query"]
-        self.capacity = max(min(budget, expected), 4)
-        self.ring = torch.zeros((self.capacity, h, w, 5), dtype=torch.uint8,
-                                device=device)
+        if self.host_mode:
+            self.frames: List[np.ndarray] = []
+            self._staging: Optional[torch.Tensor] = None
+            self._uploaded = None       # the last upload's CUDA event
+        else:
+            self.capacity = max(min(budget, expected), 4)
+            self.ring = torch.zeros((self.capacity, h, w, 5),
+                                    dtype=torch.uint8, device=device)
 
     def append(self, color_dev, depth_dev, est_c2w, exposure=None) -> None:
         slot = len(self.est_c2w)
-        if slot >= self.capacity:
-            raise RuntimeError(
-                f"keyframe ring overflow: keyframe #{slot + 1} exceeds the "
-                f"ring capacity {self.capacity}")
-        self.ring[slot] = image.encode_wire_frame(color_dev, depth_dev,
-                                                  self.depth_scale)
+        wire = image.encode_wire_frame(color_dev, depth_dev, self.depth_scale)
+        if self.host_mode:
+            self.frames.append(wire.cpu().numpy())
+        else:
+            if slot >= self.capacity:
+                raise RuntimeError(
+                    f"keyframe ring overflow: keyframe #{slot + 1} exceeds "
+                    f"the device ring capacity {self.capacity} "
+                    f"(cuda.keyframe_device_budget). Set "
+                    f"cuda.keyframe_host_ring: true (or leave it 'auto') to "
+                    f"keep keyframe images in host memory.")
+            self.ring[slot] = wire
         self.est_c2w.append(np.asarray(est_c2w, np.float32))
         self.exposure.append(
             np.zeros(self.exposure_dim, np.float32) if exposure is None
@@ -112,14 +130,35 @@ class KeyframeStore:
             arr[:n] = np.stack(self.est_c2w)
         return torch.as_tensor(arr, device=self.device)
 
+    def _upload_window(self, slots: List[int], f_max: int) -> torch.Tensor:
+        """Host ring: the wire frames of ``slots`` in the staging buffer
+        (zeros before the first keyframe, as the device ring's unused
+        slots), copied to the device in one transfer. ``f_max`` is the
+        mapper's fixed window size."""
+        cuda = self.device.type == "cuda"
+        if self._staging is None:
+            self._staging = torch.empty((f_max, self.h, self.w, 5),
+                                        dtype=torch.uint8, pin_memory=cuda)
+        elif self._uploaded is not None:
+            self._uploaded.synchronize()    # the last copy has read it
+        staging = self._staging.numpy()
+        for k, s in enumerate(slots):
+            staging[k] = self.frames[s] if self.frames else 0
+        wire = self._staging.to(self.device, non_blocking=cuda)
+        if cuda:
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record()
+        return wire
+
     def gather_window(self, sel: Sequence[int], f_max: int):
         """Window tensors (f_max leading dim) for keyframe slots ``sel``:
         color, depth, r_query, c2w and the exposure latents; slots past
-        len(sel) are padding (r_query 1e6, identity pose, zero latent)."""
-        slots = torch.as_tensor((list(sel) + [0] * f_max)[:f_max],
-                                device=self.device)
-        color, depth = image.decode_wire_frame(self.ring[slots],
-                                               1.0 / self.depth_scale)
+        len(sel) are padding (slot 0's frame, r_query 1e6, identity pose,
+        zero latent)."""
+        slots = (list(sel) + [0] * f_max)[:f_max]
+        wire = (self._upload_window(slots, f_max) if self.host_mode
+                else self.ring[torch.as_tensor(slots, device=self.device)])
+        color, depth = image.decode_wire_frame(wire, 1.0 / self.depth_scale)
         rq = torch.full(depth.shape, 1e6, device=self.device)
         for k in range(len(sel)):
             rq[k] = (image.dynamic_radius_maps(color[k], *self.rq_args)[1]

@@ -14,7 +14,11 @@ JAX parameter tree's names (``pts_linears``, ``fc_c``, ``output_linear``,
   (3 -> 40, scale 32), Softplus(beta=100), the relative-position
   neighbour encoder F_theta (``mlp_col_neighbor``) and, with
   ``model.encode_exposure``, the exposure MLP (``mlp_exposure``) that maps a
-  per-keyframe latent to a 3x3 + 3 colour affine.
+  per-keyframe latent to a 3x3 + 3 colour affine. With
+  ``model.use_view_direction`` the unit view direction joins the point
+  embedding (at the input and at the skip): its own fixed Fourier
+  embedding (``embedder_view_B``, 3 -> 40) with ``model.encode_viewd``,
+  else the 3 raw components.
 
 The kNN runs outside (ops/knn.py), so one search feeds both decoders.
 """
@@ -131,13 +135,12 @@ class ColorDecoder(nn.Module):
     """RGB for points p; ``encode_neighbor_feats`` is F_theta."""
 
     def __init__(self, c_dim: int = C_DIM, use_view_direction: bool = False,
-                 exposure_dim: int = 0, generator=None):
+                 exposure_dim: int = 0, generator=None,
+                 encode_viewd: bool = False):
         super().__init__()
-        if use_view_direction:
-            raise NotImplementedError(
-                "point_slam_tpu_torch does not implement "
-                "model.use_view_direction yet")
         emb_in = 2 * COL_EMB
+        if use_view_direction:
+            emb_in += 2 * COL_EMB if encode_viewd else 3
         # fixed (never learned): a buffer, where JAX applies stop_gradient
         self.register_buffer(
             "embedder_B", 32.0 * torch.randn(3, COL_EMB, generator=generator))
@@ -152,6 +155,9 @@ class ColorDecoder(nn.Module):
         self.fc_c = nn.ModuleList([_torch_linear(c_dim, COL_HIDDEN, generator)
                                    for _ in range(N_BLOCKS)])
         self.output_linear = _dense(COL_HIDDEN, 3, "linear", generator)
+        if use_view_direction and encode_viewd:
+            self.register_buffer("embedder_view_B", 32.0 * torch.randn(
+                3, COL_EMB, generator=generator))
         if exposure_dim:
             self.mlp_exposure = nn.ModuleDict({
                 "l1": _normal_w_torch_b(exposure_dim, COL_HIDDEN,
@@ -160,10 +166,20 @@ class ColorDecoder(nn.Module):
 
     def forward(self, p: torch.Tensor, c: torch.Tensor,
                 apply_sigmoid: bool = True,
-                exposure_feat: torch.Tensor | None = None) -> torch.Tensor:
-        """RGB (N, 3). With ``exposure_feat`` (one latent) the exposure
-        affine is applied, then the sigmoid."""
+                exposure_feat: torch.Tensor | None = None,
+                views_d: torch.Tensor | None = None) -> torch.Tensor:
+        """RGB (N, 3). ``views_d`` (N, 3): the samples' view directions
+        (with ``use_view_direction``), normalised here. With
+        ``exposure_feat`` (one latent) the exposure affine is applied, then
+        the sigmoid."""
         emb = fourier_embed(self.embedder_B, p, concat=True)
+        if views_d is not None:
+            vnorm = views_d / torch.clamp(
+                torch.linalg.norm(views_d, dim=-1, keepdim=True), min=1e-12)
+            if hasattr(self, "embedder_view_B"):
+                vnorm = fourier_embed(self.embedder_view_B, vnorm,
+                                      concat=True)
+            emb = torch.cat([emb, vnorm], dim=-1)
         h = _mlp_forward(self.pts_linears, self.fc_c, emb, c, softplus100)
         out = self.output_linear(h)
         if exposure_feat is not None:
@@ -204,7 +220,7 @@ class Decoders(nn.Module):
         self.col = ColorDecoder(
             C_DIM, bool(m.get("use_view_direction")),
             int(m["exposure_dim"]) if m.get("encode_exposure") else 0,
-            generator)
+            generator, bool(m.get("encode_viewd")))
 
 
 def init_decoders(cfg: Dict[str, Any], seed: int, device="cpu") -> Decoders:

@@ -34,6 +34,7 @@ class RenderConfig(NamedTuple):
     min_nn_num: int = 2
     nn_num: int = 8
     encode_rel_pos_in_col: bool = True
+    use_view_direction: bool = False
     encode_exposure: bool = False
     ray_batch: int = 3000
     # ray-shared kNN (ops/knn.ray_grid_knn, the CUDA kernel on the card)
@@ -50,10 +51,6 @@ def resolve_auto(mode, device) -> bool:
 
 def make_render_config(cfg: Dict[str, Any], sigmoid_coef: float,
                        device) -> RenderConfig:
-    if cfg["model"].get("use_view_direction"):
-        raise NotImplementedError(
-            "point_slam_tpu_torch does not implement model.use_view_direction"
-            " yet")
     cu = cfg["cuda"]
     return RenderConfig(
         ray_knn=resolve_auto(cu.get("ray_knn", "auto"), device),
@@ -68,6 +65,7 @@ def make_render_config(cfg: Dict[str, Any], sigmoid_coef: float,
         min_nn_num=cfg["pointcloud"]["min_nn_num"],
         nn_num=cfg["pointcloud"]["nn_num"],
         encode_rel_pos_in_col=cfg["model"]["encode_rel_pos_in_col"],
+        use_view_direction=bool(cfg["model"]["use_view_direction"]),
         encode_exposure=bool(cfg["model"]["encode_exposure"]),
     )
 
@@ -189,11 +187,14 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
                                                         neigh_feats)
         c_col = torch.sum(w[..., None] * neigh_feats, dim=1)
         c_col = D.random_fill_features(c_col, has_neighbors, fill[1])
+        views_d = (rays_d.repeat_interleave(ns, dim=0)
+                   if rc.use_view_direction else None)
         if rc.encode_exposure and exposure_feat is not None:
-            rgb = dec.col(p, c_col, exposure_feat=exposure_feat)
+            rgb = dec.col(p, c_col, exposure_feat=exposure_feat,
+                          views_d=views_d)
         else:
             rgb = dec.col(p, c_col, apply_sigmoid=apply_sigmoid_color
-                          and not rc.encode_exposure)
+                          and not rc.encode_exposure, views_d=views_d)
     else:
         rgb = torch.zeros((p.shape[0], 3), device=p.device)
 

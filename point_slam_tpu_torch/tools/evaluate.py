@@ -37,8 +37,9 @@ def eval_reconstruction(slam, cfg, mesh_path: str, out_dir: str
     GT mesh sources, in order: ``meshing.gt_mesh`` (a ply path), else the
     dataset's analytic ``gt_mesh()`` (Synthetic), culled to the estimated
     trajectory's frusta (written to ``mesh/gt_culled.ply``). With
-    ``meshing.eval_2d`` also the virtual-view depth-L1. Returns {} when no
-    GT surface is available."""
+    ``meshing.eval_2d`` also the virtual-view depth-L1. Raises when there
+    is no GT surface (a disk dataset without ``meshing.gt_mesh``), so the
+    step is listed as failed instead of skipped."""
     from point_slam_tpu_torch.tools.cull_mesh import cull_mesh
     from point_slam_tpu_torch.tools.eval_recon import (calc_2d_metric,
                                                        calc_3d_metric)
@@ -53,8 +54,11 @@ def eval_reconstruction(slam, cfg, mesh_path: str, out_dir: str
                               fy=cam["fy"], cx=cam["cx"], cy=cam["cy"])
         gt_path = os.path.join(out_dir, "mesh", "gt_culled.ply")
         write_ply(gt_path, cv, faces=cf)
-    if gt_path is None or not os.path.exists(gt_path):
-        return {}
+    if gt_path is None:
+        raise RuntimeError(f"no ground-truth mesh for the {cfg['dataset']} "
+                           "scene: set meshing.gt_mesh to its ply")
+    if not os.path.exists(gt_path):
+        raise FileNotFoundError(f"meshing.gt_mesh {gt_path} does not exist")
     res = calc_3d_metric(mesh_path, gt_path, threshold=0.01)
     out = {f"recon_{k.replace(' ', '_').replace('-', '_')}": v
            for k, v in res.items()}
@@ -208,7 +212,7 @@ def run_end_of_run_eval(slam, out_dir: str) -> Dict[str, Any]:
             if cfg["meshing"]["eval_rec"]:
                 rec = step("recon", lambda: eval_reconstruction(
                     slam, cfg, mesh_path, out_dir))
-                if rec:
+                if rec is not None:
                     results.update(rec)
                     print({k: round(v, 3) for k, v in rec.items()})
 

@@ -364,3 +364,34 @@ def test_block_topk_refuses_bad_inputs_on_cuda():
         bt.block_topk(swapped, q, 8, 4095)
     with pytest.raises(ValueError, match="lane_mask"):
         bt.block_topk(views, q, 8, 2047)
+
+
+@pytest.mark.cuda
+def test_host_keyframe_ring_window_equals_the_device_ring_on_cuda():
+    """The host ring's pinned staging buffer and its asynchronous upload
+    give the device ring's window, bit for bit, over consecutive gathers
+    (the second waits for the first copy before refilling the buffer)."""
+    dev = cuda_or_skip()
+    import os
+    from point_slam_tpu_torch.config import load_config
+    from point_slam_tpu_torch.mapper import KeyframeStore
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "Synthetic", "room.yaml"),
+                      os.path.join(root, "configs", "point_slam.yaml"))
+    stores = []
+    for host in (False, True):
+        cfg["cuda"]["keyframe_host_ring"] = host
+        stores.append(KeyframeStore(cfg, 120, 160, 40, 2, dev))
+    g = torch.Generator(device=dev).manual_seed(0)
+    for k in range(6):
+        color = torch.rand(120, 160, 3, generator=g, device=dev)
+        depth = 5 * torch.rand(120, 160, generator=g, device=dev)
+        for s in stores:
+            s.append(color, depth, np.eye(4) + k)
+    assert stores[1].host_mode and not stores[0].host_mode
+    for sel in ([0, 2], [5, 4, 3, 1], [1]):
+        for a, b in zip(stores[0].gather_window(sel, 6),
+                        stores[1].gather_window(sel, 6)):
+            assert a.device.type == b.device.type == "cuda"
+            assert torch.equal(a, b)
+    assert stores[1]._staging.is_pinned()

@@ -151,8 +151,9 @@ def test_random_fill_uses_one_shared_vector():
 
 
 def test_out_of_slice_options_raise():
-    """use_view_direction stays refused; the exposure MLP (encode_exposure)
-    is carried, with the JAX tree's names, shapes and orientation."""
+    """Nothing of the colour decoder is refused any more: the exposure MLP
+    (encode_exposure) and the view-direction input (use_view_direction) are
+    carried, with the JAX tree's names, shapes and orientation."""
     jcfg, tcfg = tiny_cfgs()
     jcfg["model"]["encode_exposure"] = True
     tcfg["model"]["encode_exposure"] = True
@@ -170,5 +171,87 @@ def test_out_of_slice_options_raise():
     assert 0.005 < float(own["l1"].weight.detach().std()) < 0.02
     tcfg["model"]["encode_exposure"] = False
     tcfg["model"]["use_view_direction"] = True
-    with pytest.raises(NotImplementedError, match="use_view_direction"):
-        TD.init_decoders(tcfg, 0)
+    col = TD.init_decoders(tcfg, 0).col
+    assert col.pts_linears[0].in_features == 4 * TD.COL_EMB
+    assert "embedder_view_B" in dict(col.named_buffers())
+
+
+def _viewd_cfgs(encode_viewd):
+    jcfg, tcfg = tiny_cfgs()
+    for cfg in (jcfg, tcfg):
+        cfg["model"].update({"use_view_direction": True,
+                             "encode_viewd": encode_viewd})
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("encode_viewd", [True, False],
+                         ids=["encode_viewd", "raw_viewd"])
+def test_color_decoder_with_view_directions_matches_jax(encode_viewd):
+    """The view direction joins the point embedding at the input and at the
+    skip (its Fourier embedding, or the 3 raw components), normalised with
+    the 1e-12 floor; the widths and embedder_view_B follow the JAX tree."""
+    jcfg, tcfg = _viewd_cfgs(encode_viewd)
+    params = jax_decoders(jcfg)
+    dec = interop.decoders_from_numpy(to_numpy(params), tcfg)
+    width = 2 * TD.COL_EMB + (2 * TD.COL_EMB if encode_viewd else 3)
+    assert dec.col.pts_linears[0].in_features == width
+    assert dec.col.pts_linears[TD.SKIP + 1].in_features == \
+        TD.COL_HIDDEN + width
+    assert ("embedder_view_B" in params["col"]) == encode_viewd
+    if encode_viewd:
+        np.testing.assert_array_equal(n(dec.col.embedder_view_B),
+                                      np.asarray(params["col"]
+                                                 ["embedder_view_B"]))
+    p, c, _, _ = _inputs(5)
+    rng = np.random.default_rng(6)
+    views = rng.normal(0, 1.5, (p.shape[0], 3)).astype(np.float32)
+    views[0] = 0.0                            # the norm's 1e-12 floor
+    for sig in (True, False):
+        got = dec.col(t(p), t(c), apply_sigmoid=sig, views_d=t(views))
+        want = JD.col_decoder_apply(params["col"], jnp.asarray(p),
+                                    jnp.asarray(c), jnp.asarray(views),
+                                    apply_sigmoid=sig)
+        np.testing.assert_allclose(n(got), n(want), **PHASE_TOL)
+
+
+@pytest.mark.parametrize("encode_viewd", [True, False],
+                         ids=["encode_viewd", "raw_viewd"])
+def test_render_rays_with_view_directions_matches_jax(encode_viewd):
+    """render_rays hands the colour decoder each ray's direction repeated
+    over its samples, as JAX's does; the geometry does not change."""
+    from point_slam_tpu import renderer as JR
+    from point_slam_tpu.common import camera as jcam
+    from point_slam_tpu_torch import renderer as TR
+    from torch_parity import Scene, jax_fill
+    jcfg, tcfg = _viewd_cfgs(encode_viewd)
+    scene = Scene()
+    params = jax_decoders(jcfg)
+    tdec = interop.decoders_from_numpy(to_numpy(params), tcfg)
+    _, _, depth, c2w = scene.frames[1]
+    rng = np.random.default_rng(7)
+    i = rng.integers(0, 64, 120).astype(np.float32)
+    j = rng.integers(0, 48, 120).astype(np.float32)
+    o, d = jcam.rays_from_uv(jnp.asarray(i), jnp.asarray(j),
+                             jnp.asarray(c2w), 40.0, 40.0, 31.5, 23.5)
+    rays = (np.asarray(o), np.asarray(d),
+            depth[j.astype(int), i.astype(int)].copy(),
+            np.full(120, 0.14, np.float32), np.ones(120, bool))
+    key = jax.random.key(3)
+    jrc = JR.make_render_config(jcfg, 0.1)._replace(ray_knn=False)
+    trc = TR.make_render_config(tcfg, 0.1, "cpu")
+    assert trc.use_view_direction
+    jout = JR.render_rays(params, scene.jcloud.packed, scene.jcloud.n_points,
+                          scene.jindex, *map(jnp.asarray, rays), key, jrc,
+                          stage_color=True)
+    tout = TR.render_rays(tdec, scene.tcloud.packed, scene.tindex,
+                          *map(t, rays), trc, stage_color=True,
+                          fill=jax_fill(key))
+    for name, a, b in zip(("depth", "uncertainty", "color"), tout[:3],
+                          jout[:3]):
+        np.testing.assert_allclose(n(a), np.asarray(b), err_msg=name,
+                                   **PHASE_TOL)
+    plain = TR.render_rays(tdec, scene.tcloud.packed, scene.tindex,
+                           *map(t, rays),
+                           trc._replace(use_view_direction=False),
+                           stage_color=False, fill=jax_fill(key))
+    assert torch.equal(tout[0], plain[0])

@@ -87,13 +87,15 @@ def _code_strings(path):
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    """No import of jax or point_slam_tpu; no run-time path into the JAX
+    """No import of jax, point_slam_tpu or an image library (cv2, PIL,
+    torchvision); no run-time path into the JAX
     package or the root native/ sources (docstrings and comments may cite
     them); the host C++ sources are the port's own copies, built from its
     native/ into its ops/build/, and its C++/CUDA sources include nothing
     from outside their own directory."""
     from point_slam_tpu_torch.utils import native
-    pat = re.compile(r"^\s*(import|from)\s+(jax|point_slam_tpu)(\.|\s|$)")
+    pat = re.compile(r"^\s*(import|from)\s+(jax|point_slam_tpu|cv2|PIL|"
+                     r"torchvision)(\.|\s|$)")
     files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
     assert len(files) > 30
     assert os.path.join(PORT, "profiling", "knn_study.py") in files
@@ -107,9 +109,9 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert native._SRC_DIR == os.path.join(PORT, "native")
     assert native.BUILD_DIR == os.path.join(PORT, "ops", "build")
     sources = sorted(glob.glob(os.path.join(PORT, "native", "*.cpp")))
-    assert [os.path.basename(s) for s in sources] == ["marching.cpp",
-                                                      "raster.cpp"]
-    for name in ("marching", "raster"):
+    assert [os.path.basename(s) for s in sources] == [
+        "imgcodec.cpp", "marching.cpp", "raster.cpp"]
+    for name in ("imgcodec", "marching", "raster"):
         assert os.path.dirname(native.library_path(name)) == \
             native.BUILD_DIR
     cxx = sources + glob.glob(os.path.join(PORT, "ops", "csrc", "*.cu"))
@@ -124,6 +126,17 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                 assert "/" not in inc.group(1), (f, ln)
 
 
+def test_chip_smoke_imports_no_jax_and_no_image_library():
+    """chip_smoke.py runs on the card's machine, which has neither JAX nor
+    an image library: it imports none of them, nor the JAX package."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|point_slam_tpu|cv2|PIL|"
+                     r"torchvision)(\.|\s|$)")
+    with open(os.path.join(HERE, "chip_smoke.py")) as fh:
+        lines = fh.readlines()
+    assert any(re.match(r"\s*from point_slam_tpu_torch", ln) for ln in lines)
+    assert not [ln for ln in lines if pat.match(ln)]
+
+
 YAMLS = sorted(os.path.relpath(p, CONFIGS) for p in
                glob.glob(os.path.join(CONFIGS, "**", "*.yaml"), recursive=True))
 
@@ -131,31 +144,31 @@ YAMLS = sorted(os.path.relpath(p, CONFIGS) for p in
 @pytest.mark.parametrize("name", YAMLS)
 def test_config_tree_matches_jax(name):
     """Same YAML tree, same inherit_from resolution; the port reads its
-    'cuda' section (defaults equal to TPU_DEFAULTS for the knobs it keeps)
-    and leaves a scene's 'tpu' section to the JAX package."""
-    from point_slam_tpu.config import TPU_DEFAULTS
+    'cuda' section, whose knobs resolve to the JAX package's 'tpu' values
+    (its defaults, and a scene's shared 'tpu' keys such as
+    room_scannet_scale.yaml's capacity and host ring)."""
     default = os.path.join(CONFIGS, "point_slam.yaml")
     jcfg = jload(os.path.join(CONFIGS, name), default)
     tcfg = tconfig.load_config(os.path.join(CONFIGS, name), default)
-    jcfg.pop("tpu")
+    jtpu = jcfg.pop("tpu")
     tcfg.pop("tpu", None)
     tcuda = tcfg.pop("cuda")
     assert tcfg == jcfg
     for k, v in tcuda.items():
-        assert v == TPU_DEFAULTS["tpu"][k], k
+        assert v == jtpu[k], k
 
 
 def test_cuda_defaults_hold_only_the_slice_knobs():
     assert set(tconfig.CUDA_DEFAULTS["cuda"]) == {
         "point_capacity_init", "point_capacity_max", "grid_table_size",
         "grid_max_per_cell", "knn_probes", "ray_knn", "knn_packed_coords",
-        "keyframe_device_budget", "fused_adam"}
+        "keyframe_device_budget", "keyframe_host_ring", "data_parallel",
+        "fused_adam"}
 
 
 OUT_OF_SLICE = [
     ({"mapping": {"vis_inside": True}}, "vis_inside"),
     ({"tracking": {"vis_inside": True}}, "vis_inside"),
-    ({"cuda": {"keyframe_host_ring": True}}, "keyframe ring"),
     ({"cuda": {"data_parallel": 2}}, "data parallelism"),
 ]
 
@@ -177,14 +190,16 @@ SENSOR_SLICE = [
     ({"cuda": {"knn_packed_coords": "fused"}}, "fused"),
     ({"cuda": {"fused_adam": True}}, "row-Adam"),
     ({"wandb": True}, "metrics sink"),
+    ({"cuda": {"keyframe_host_ring": True}}, "keyframe ring"),
 ]
 
 
 @pytest.mark.parametrize("override,what", SENSOR_SLICE,
                          ids=[w for _, w in SENSOR_SLICE])
 def test_sensor_slice_paths_pass_the_check(override, what):
-    """The paths the port carries (those of the sensor-shaped slice, and
-    the metrics sink's wandb mirror) are no longer refused."""
+    """The paths the port carries (those of the sensor-shaped slice, the
+    metrics sink's wandb mirror and the host keyframe ring) are no longer
+    refused."""
     _, cfg = tiny_cfgs(4)
     tconfig.update_recursive(cfg, override)
     tconfig.check_supported(cfg)

@@ -123,3 +123,49 @@ class Scene:
         self.tcloud = interop.cloud_from_numpy(*to_numpy(tuple(state)))
         self.tindex = interop.index_from_numpy(
             to_numpy(self.jindex._asdict()))
+
+
+def room_frames(n, h=48, w=64, depth_scale=5000.0, angular_step=0.02):
+    """n frames of the furnished synthetic room at h x w (focal 40 at
+    48x64, scaled with the size), as a disk dataset stores them: (BGR u8,
+    u16 depth at ``depth_scale`` with 5% sensor holes, c2w in the
+    datasets' y-down convention)."""
+    from point_slam_tpu_torch import datasets as TDS
+    from point_slam_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(CONFIGS, "Synthetic", "room_furnished.yaml"),
+                      os.path.join(CONFIGS, "point_slam.yaml"))
+    cfg["cam"].update({"H": h, "W": w, "fx": 40.0 * w / 64,
+                       "fy": 40.0 * h / 48, "cx": (w - 1) / 2,
+                       "cy": (h - 1) / 2, "crop_edge": 0})
+    cfg["synthetic"].update({"n_frames": n, "angular_step": angular_step})
+    ds = TDS.Synthetic(cfg)
+    frames = []
+    for i in range(n):
+        _, color, depth = ds[i][:3]
+        bgr = np.rint(color[..., ::-1] * 255).astype(np.uint8)
+        d16 = np.clip(np.rint(depth * depth_scale), 0, 65535).astype(
+            np.uint16)
+        d16[np.random.default_rng(i).uniform(size=d16.shape) < 0.05] = 0
+        frames.append((bgr, d16, TDS._flip_yz(ds.poses[i])))
+    return frames
+
+
+def write_images(bgr, d16, cpath, dpath):
+    import cv2
+    cv2.imwrite(cpath, bgr, [cv2.IMWRITE_JPEG_QUALITY, 95]
+                if cpath.endswith(".jpg") else [])
+    cv2.imwrite(dpath, d16)
+
+
+def write_replica(root, frames):
+    """A Replica-layout directory (results/frame*.jpg, depth*.png,
+    traj.txt) at ``root``."""
+    os.makedirs(os.path.join(root, "results"))
+    lines = []
+    for i, (bgr, d16, pose) in enumerate(frames):
+        write_images(bgr, d16,
+                     os.path.join(root, "results", f"frame{i:06d}.jpg"),
+                     os.path.join(root, "results", f"depth{i:06d}.png"))
+        lines.append(" ".join(f"{v:.9f}" for v in pose.reshape(-1)))
+    with open(os.path.join(root, "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
