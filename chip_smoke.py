@@ -88,7 +88,26 @@ non-zero with no result line otherwise. In one pass it:
    peak device memory. F3 runs two frames with use_view_direction (with
    and without encode_viewd): finite losses, and a geometry-stage render
    equal to one without view directions;
-8. prints one JSON line of the kernels, the card again, and last the line
+8. phase G: the in-run visualiser and the render-path run keys. G1 runs
+   phase B's configuration over frames 0-5 with vis_inside in both loops
+   (tracking panels every 20 of 40 iterations, mapping every 100 with
+   cuda.max_iters_per_launch 200; vis_freq 5; every mapped frame at 400
+   iterations) and save_rendered_image: the panel files must be exactly
+   the names the JAX package's rule gives (G1_PANELS), each a PNG that the
+   port's decoder reads at 2H x 3W; the panels' K1 launches are counted
+   apart. G2 runs phase B with cuda.bf16_features (and end-of-frame panels
+   at vis_freq 2 / 5, their names by the same rule): K1 ran, finite poses,
+   the cloud grew, the view's positions within test_bf16.py's relative
+   bound; prints ATE without alignment and frames/s beside phase B's and
+   the depth L1 between a bf16 and an f32 render of frame 0. G3 runs
+   room_sensor.yaml's path (phase C's) over frames 0-4 with the bf16 view:
+   K3 ran, K4 once per mapping iteration, finite poses. G4 holds the
+   decoders on a mapping batch: cuda.mlp_precision 'highest' bit-equal to
+   no setting, 'default' different (TF32) within G4_REL of it, the TF32
+   switch off again after it and the prefetch thread's grey conversion
+   unchanged under it; then phase B again with 'default': ATE without
+   alignment under 2 cm, frames/s;
+9. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -143,6 +162,19 @@ F_EXTRA_AFTER = 4           # the dropped entry comes 10 ms after frame 4
 F_HOLES = 0.05              # share of zeroed depth pixels (sensor holes)
 F_DECODE_REPEATS = 20
 F3_ITERS_FIRST = 100        # phase F3's depth cut (the config's: 500)
+# phase G: frames 0-5 (G1) and 0-4 (G3); the panels G1 must leave, by the
+# JAX package's rule (vis_freq 5; tracking: a hook panel at iteration 20 of
+# 40 on frame 5; mapping: frame 5's 400 iterations in launches of 200, the
+# panel at the last multiple of 100 below 200; vis_inside writes no
+# end-of-frame panel and so no rendered image)
+G_FRAMES = 6
+G_ITERS = 400               # every mapped frame of G1 (iters_first 1500)
+G1_PANELS = {"tracking_vis": ["00005_0020"],
+             "mapping_vis": ["00005_0100"],
+             "rendered_image": []}
+G3_FRAMES = 5
+G4_POINTS = 25000           # a mapping batch: 5000 rays x 5 samples
+G4_REL = 2e-2               # TF32 against IEEE f32, relative to max |out|
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
@@ -404,8 +436,8 @@ def phase_a_row_adam(dev, cfg, cloud, n_live, depth_d, c2w_d):
     return out
 
 
-def run_slam(dev, cfg, setup=None, input_folder=None):
-    """PointSLAM over the config's frames; returns (summary, slam,
+def run_slam(dev, cfg, setup=None, input_folder=None, stop=None):
+    """PointSLAM over the config's frames (0..stop); returns (summary, slam,
     per-phase launch counts, totals). Every kernel count is set to 0 just
     before the run and read just after it. ``setup(slam)`` runs first."""
     from point_slam_tpu_torch.ops import adam, knn
@@ -434,11 +466,20 @@ def run_slam(dev, cfg, setup=None, input_folder=None):
     for table in (knn.LAUNCHES, adam.LAUNCHES):
         for name in table:
             table[name] = 0
-    summary = slam.run()
+    summary = slam.run(stop=stop)
     return summary, slam, per_phase, launches()
 
 
-def phase_b(dev):
+def frames_per_s(summary):
+    """Frames 1..n-1 over their tracking and mapping wall times."""
+    ft = summary["frame_times"]
+    n = summary["n_frames"]
+    return (n - 1) / sum(ft[i]["track"] + ft[i]["map"] for i in range(1, n))
+
+
+def phase_b(dev, ref):
+    """The main path (room.yaml at bench.py's widths) through K1, then a
+    short run through K2; fills ``ref`` with its ATE and frames/s."""
     import numpy as np
     from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
 
@@ -472,11 +513,12 @@ def phase_b(dev):
     ft = summary["frame_times"]
     tracked = [ft[i]["track"] for i in range(2, 7)]
     mapped = {i: ft[i]["map"] for i in (0, 5, 6)}
+    ref.update(ate=ate, fps=frames_per_s(summary))
     print(f"[B] tracked frame times (s, frames 2-6): "
           f"{[round(t, 4) for t in tracked]}; mapped frame times (s): "
           f"{ {i: round(t, 4) for i, t in mapped.items()} } "
           f"(iterations {[stats[i]['n_iters'] for i in (0, 5, 6)]}); "
-          f"frames 1-6 {6 / sum(ft[i]['track'] + ft[i]['map'] for i in range(1, 7)):.4f}"
+          f"frames 1-6 {ref['fps']:.4f}"
           f" frames/s; run wall {wall:.2f} s; timing {summary['timing']}; "
           f"card {card_line()}", flush=True)
 
@@ -825,33 +867,6 @@ def phase_e_child(dev):
     return launches
 
 
-def write_png(path, img):
-    """A minimal PNG writer: 8-bit RGB (H,W,3) or 16-bit grey (H,W), every
-    row with filter 0, one zlib stream."""
-    import struct
-    import zlib
-    import numpy as np
-    h, w = img.shape[:2]
-    if img.dtype == np.uint16:
-        ctype, bits = 0, 16
-        rows = img.astype(">u2").view(np.uint8).reshape(h, -1)
-    else:
-        ctype, bits = 2, 8
-        rows = img.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
-
-
 def quat_xyzw(r):
     """A rotation matrix's unit quaternion (x, y, z, w)."""
     import numpy as np
@@ -886,6 +901,7 @@ def write_tum_sequence(root, cfg):
     import numpy as np
     from point_slam_tpu_torch.config import load_config
     from point_slam_tpu_torch.datasets import Synthetic, _flip_yz
+    from point_slam_tpu_torch.utils.png import write_png
     scfg = load_config(os.path.join(HERE, "configs", "Synthetic",
                                     "room.yaml"),
                        os.path.join(HERE, "configs", "point_slam.yaml"))
@@ -1167,10 +1183,302 @@ def phase_f(dev):
     return totals
 
 
+def panel_names(root):
+    """The stems of the panels and rendered images under a run's output."""
+    import glob
+    return {d: sorted(os.path.splitext(os.path.basename(p))[0]
+                      for p in glob.glob(os.path.join(root, d, "*")))
+            for d in ("tracking_vis", "mapping_vis", "rendered_image")}
+
+
+def check_panel_files(root, want, hw):
+    """The panels and rendered images are exactly ``want`` (the JAX rule's
+    names) and each is a PNG that the port's decoder reads at its size."""
+    from point_slam_tpu_torch.utils import imgcodec
+    got = panel_names(root)
+    if got != want:
+        raise AssertionError(f"panel files {got}; the JAX rule gives {want}")
+    h, w = hw
+    for d, stems in got.items():
+        size = (h, w, 3) if d == "rendered_image" else (2 * h, 3 * w, 3)
+        for stem in stems:
+            img = imgcodec.imread(os.path.join(root, d, stem + ".png"))
+            if img.shape != size:
+                raise AssertionError(f"{d}/{stem}.png is {img.shape}, not "
+                                     f"{size}")
+
+
+def count_panels(slam, rec):
+    """Wrap both visualizers' vis() to count the panels, their seconds
+    (synchronised) and their K1 launches into ``rec``."""
+    from point_slam_tpu_torch.ops import knn
+    rec.update(panels=0, seconds=0.0, tracking_vis=0, mapping_vis=0)
+    for name, vis in (("tracking_vis", slam.track_vis),
+                      ("mapping_vis", slam.map_vis)):
+        def timed(*a, _inner=vis.vis, _name=name, **kw):
+            _sync(slam.device)
+            k0, t0 = knn.LAUNCHES["ray_topk_packed"], time.perf_counter()
+            out = _inner(*a, **kw)
+            _sync(slam.device)
+            if out is not None:
+                rec["panels"] += 1
+                rec["seconds"] += time.perf_counter() - t0
+            rec[_name] += knn.LAUNCHES["ray_topk_packed"] - k0
+            return out
+        vis.vis = timed
+
+
+def phase_g1(dev):
+    """The visualiser inside both loops (vis_inside) at phase B's widths."""
+    import shutil
+    import numpy as np
+    cfg = bench_config(G_FRAMES)
+    cfg["tracking"].update({"vis_freq": 5, "vis_inside": True,
+                            "vis_inside_freq": 20})
+    cfg["mapping"].update({"vis_freq": 5, "vis_inside": True,
+                           "vis_inside_freq": 100, "iters_first": G_ITERS,
+                           "iters": G_ITERS // 2, "min_iter_ratio": 2.0,
+                           "save_rendered_image": True})
+    cfg["cuda"].update({"knn_packed_coords": True,
+                        "max_iters_per_launch": 200})
+    out = cfg["data"]["output"] = os.path.join(HERE, "output",
+                                               "chip_smoke_vis")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[G] cut: frames 0-{G_FRAMES - 1}; mapping.iters_first 1500 -> "
+          f"{G_ITERS}; every later mapped frame {G_ITERS} iterations "
+          f"(mapping.iters 300 -> {G_ITERS // 2}, min_iter_ratio -> 2.0)",
+          flush=True)
+    rec = {}
+    summary, slam, per_phase, totals = run_slam(
+        dev, cfg, lambda s: count_panels(s, rec))
+    k1 = "ray_topk_packed"
+    stats = slam.mapper.frame_stats
+    print(f"[G1] launches of {k1}: in the panels {rec['tracking_vis']} + "
+          f"{rec['mapping_vis']}; tracking without them "
+          f"{per_phase['track'][k1] - rec['tracking_vis']}, mapping "
+          f"{per_phase['map'][k1] - rec['mapping_vis']}; mapped frames' "
+          f"iterations { {i: stats[i]['n_iters'] for i in sorted(stats)} }",
+          flush=True)
+    if [stats[i]["n_iters"] for i in sorted(stats)] != [G_ITERS, G_ITERS]:
+        raise AssertionError(f"the mapped frames did not run {G_ITERS} "
+                             f"iterations each")
+    check_panel_files(out, G1_PANELS, (cfg["cam"]["H"], cfg["cam"]["W"]))
+    if rec["panels"] != 2 or not rec["tracking_vis"] or \
+            not rec["mapping_vis"]:
+        raise AssertionError(f"panels {rec}")
+    if not np.isfinite(summary["estimate_c2w_list"]).all():
+        raise AssertionError("non-finite poses")
+    print(f"[G1] panels {panel_names(out)}, as the JAX rule gives; "
+          f"{rec['seconds'] / rec['panels']:.3f} s a panel (render through "
+          f"K1, 2x3 tiles of {cfg['cam']['H']}x{cfg['cam']['W']}, PNG); "
+          f"card {card_line()}", flush=True)
+    return totals
+
+
+def phase_g2(dev, ref, precision="highest"):
+    """Phase B's run with the bf16 view (or, with ``precision``
+    'default', with the TF32 MLP blocks and f32 features); end-of-frame
+    panels at vis_freq 2 (tracking) and 5 (mapping). ``ref``: phase B's
+    ATE and frames/s in this call, if it ran."""
+    import shutil
+    import numpy as np
+    import torch
+    from point_slam_tpu_torch import pointcloud as pc
+    from point_slam_tpu_torch import renderer as R
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+    tag = "G2" if precision == "highest" else "G4"
+    cfg = bench_config(7)
+    cfg["cuda"].update({"knn_packed_coords": True,
+                        "bf16_features": tag == "G2",
+                        "mlp_precision": precision})
+    cfg["tracking"]["vis_freq"] = 2
+    cfg["mapping"]["vis_freq"] = 5
+    out = cfg["data"]["output"] = os.path.join(HERE, "output",
+                                               f"chip_smoke_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    rec = {}
+    summary, slam, per_phase, totals = run_slam(
+        dev, cfg, lambda s: count_panels(s, rec))
+    k1 = "ray_topk_packed"
+    stats = slam.mapper.frame_stats
+    est = summary["estimate_c2w_list"]
+    ate = evaluate_ate(summary["gt_c2w_list"], est, align=False)[
+        "absolute_translational_error.rmse"]
+    fps = frames_per_s(summary)
+    phase_b = (f"phase B: ATE no-align {ref['ate'] * 100:.4f} cm, "
+               f"{ref['fps']:.4f} frames/s" if ref else
+               "phase B did not run in this call")
+    what = "bf16 view" if tag == "G2" else "mlp_precision 'default' (TF32)"
+    print(f"[{tag}] {what}: ATE no-align {ate * 100:.4f} cm, frames 1-6 "
+          f"{fps:.4f} frames/s ({phase_b}); launches of {k1}: tracking "
+          f"{per_phase['track'][k1]}, mapping {per_phase['map'][k1]}, "
+          f"panels {rec['tracking_vis'] + rec['mapping_vis']}; points "
+          f"{[stats[i]['n_points'] for i in sorted(stats)]}; timing "
+          f"{summary['timing']}; card {card_line()}", flush=True)
+    if per_phase["track"][k1] == 0 or per_phase["map"][k1] == 0:
+        raise AssertionError(f"{k1} did not run in both tracking and "
+                             f"mapping")
+    if not np.isfinite(est).all():
+        raise AssertionError("non-finite poses")
+    if not 0 < stats[0]["n_points"] < stats[5]["n_points"]:
+        raise AssertionError("the cloud did not grow from map 0 to map 5")
+    check_panel_files(out, {
+        "tracking_vis": ["00002_0039", "00004_0039"],
+        "mapping_vis": [f"00005_{stats[5]['n_iters'] - 1:04d}"],
+        "rendered_image": ["frame_00005"]},
+        (cfg["cam"]["H"], cfg["cam"]["W"]))
+    if tag == "G4":
+        if not ate < 0.02:
+            raise AssertionError(f"ATE no-align {ate} m >= 2 cm")
+        return totals, fps
+    m = slam.mapper
+    live = m.cloud.packed[:m.n_points_host]
+    pos = pc.neighbor_pos(pc.encode_render(live))
+    ref = live[:, pc.POS_SL]
+    rel = ((pos - ref).abs() / (ref.abs() + 1e-12)).max().item()
+    _, _, depth, c2w = slam.dataset[0]
+    cam = cfg["cam"]
+    renders = []
+    for cloud in (m.cloud, m.cloud._replace(packed=pc.encode_render(
+            m.cloud.packed))):
+        renders.append(R.render_img(
+            m.decoders, cloud, m.index, torch.as_tensor(est[0], device=dev),
+            (cam["fx"], cam["fy"], cam["cx"], cam["cy"]),
+            (cam["H"], cam["W"]), m.rc,
+            gt_depth=torch.as_tensor(depth, device=dev),
+            generator=torch.Generator(device=dev).manual_seed(SEED))[0])
+    hit = torch.as_tensor(depth, device=dev) > 0
+    l1 = (renders[0] - renders[1])[hit].abs().mean().item()
+    print(f"[G2] the view's decoded positions within {rel:.3e} relative of "
+          f"the f32 master (bound 5e-5, test_bf16.py); depth L1 between a "
+          f"bf16 and an f32 render of frame 0 {l1 * 100:.3e} cm", flush=True)
+    if not rel < 5e-5:
+        raise AssertionError(f"decoded positions off by {rel} relative")
+    return totals, fps
+
+
+def phase_g3(dev):
+    """room_sensor.yaml's path (phase C) over frames 0-4 with the bf16
+    view, the fused table and the fused row-Adam."""
+    import numpy as np
+    cfg = sensor_config()
+    cfg["cuda"]["bf16_features"] = True
+    cfg["data"]["output"] = os.path.join(HERE, "output", "chip_smoke_G3")
+    print(f"[G3] cut: phase C's configuration to frames 0-{G3_FRAMES - 1}",
+          flush=True)
+    summary, slam, per_phase, totals = run_slam(dev, cfg,
+                                                stop=G3_FRAMES - 1)
+    stats = slam.mapper.frame_stats
+    map_iters = sum(stats[i]["n_iters"] * stats[i]["outer_loops"]
+                    for i in stats)
+    print(f"[G3] launches: tracking {per_phase['track']}; mapping "
+          f"{per_phase['map']}; mapping iterations {map_iters}; ATE "
+          f"no-align {summary_ate(summary) * 100:.4f} cm; card "
+          f"{card_line()}", flush=True)
+    if per_phase["track"]["ray_topk_fused"] == 0 or \
+            per_phase["map"]["ray_topk_fused"] == 0:
+        raise AssertionError("ray_topk_fused did not run in both tracking "
+                             "and mapping")
+    if totals["row_adam"] != map_iters:
+        raise AssertionError(f"row_adam launched {totals['row_adam']} times "
+                             f"for {map_iters} mapping iterations")
+    if not np.isfinite(summary["estimate_c2w_list"]).all():
+        raise AssertionError("non-finite poses")
+    return totals
+
+
+def summary_ate(summary):
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+    return evaluate_ate(summary["gt_c2w_list"], summary["estimate_c2w_list"],
+                        align=False)["absolute_translational_error.rmse"]
+
+
+def phase_g4_decoders(dev):
+    """The decoders on a mapping batch at each mlp_precision."""
+    import torch
+    from point_slam_tpu_torch.common import image
+    from point_slam_tpu_torch.datasets import get_dataset
+    from point_slam_tpu_torch.models import decoders as D
+    cfg = bench_config(1)
+    dec = D.init_decoders(cfg, SEED, dev)
+    D.load_pretrained_geo(dec, os.path.join(HERE, "pretrained",
+                                            "middle_fine.npz"))
+    _, color, depth, c2w = get_dataset(cfg)[0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # surface points of frame 0 with neighbours around them
+    d = torch.as_tensor(depth, device=dev).reshape(-1)
+    flat = torch.nonzero(d > 0).squeeze(1)
+    pick = flat[torch.randint(0, flat.numel(), (G4_POINTS,), generator=g,
+                              device=dev)]
+    cam = cfg["cam"]
+    jj, ii = pick // cam["W"], pick % cam["W"]
+    z = d[pick]
+    pc_ = torch.stack([(ii - cam["cx"]) / cam["fx"] * z,
+                       -(jj - cam["cy"]) / cam["fy"] * z, -z], -1)
+    c2w_d = torch.as_tensor(c2w, device=dev)
+    p = pc_ @ c2w_d[:3, :3].T + c2w_d[:3, 3]
+    c = 0.1 * torch.randn((G4_POINTS, 32), generator=g, device=dev)
+    nbp = p[:, None, :] + 0.03 * torch.randn((G4_POINTS, 8, 3), generator=g,
+                                             device=dev)
+    nbf = 0.1 * torch.randn((G4_POINTS, 8, 32), generator=g, device=dev)
+
+    def run(prec):
+        with torch.no_grad():
+            return (dec.geo(p, c, precision=prec),
+                    dec.col(p, c, precision=prec),
+                    dec.col.encode_neighbor_feats(nbp, p, nbf,
+                                                  precision=prec))
+    base = run(None)
+    high = run("highest")
+    tf32 = run("default")
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(base, high))
+    differ = any(not torch.equal(a, b) for a, b in zip(base, tf32))
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(tf32, base)]
+    err = max((a - b).abs().max().item() for a, b in zip(tf32, base))
+    off = torch.backends.cuda.matmul.allow_tf32 is False
+    # the prefetch thread's one matmul (the grey conversion of the radius
+    # maps) under the switch: cuBLAS's matrix-vector product has no TF32
+    col = torch.as_tensor(color, device=dev)
+    grey = image.rgb2gray(col)
+    with D._tf32():
+        grey_tf32 = image.rgb2gray(col)
+    grey_same = torch.equal(grey, grey_tf32)
+    print(f"[G4] decoders on {G4_POINTS} samples (geometry, colour, "
+          f"F_theta): 'highest' bit-equal to no setting: {same}; 'default' "
+          f"differs: {differ}, max abs err {err:.3e}, relative to max |out| "
+          f"{[f'{r:.3e}' for r in rel]} (bound {G4_REL}); TF32 switch off "
+          f"after: {off}; grey conversion unchanged under it: {grey_same}",
+          flush=True)
+    if not (same and differ and off and grey_same and max(rel) < G4_REL):
+        raise AssertionError("mlp_precision: 'highest' not bit-equal, "
+                             "'default' not TF32, or outside the bound")
+    return err
+
+
+def phase_g(dev, ref):
+    """The visualiser (G1), the bf16 view (G2, G3), TF32 (G4); ``ref``:
+    phase B's numbers in this call, if it ran. Returns the kernel launches
+    of the phase."""
+    t0 = time.perf_counter()
+    launches = phase_g1(dev)
+    for totals in (phase_g2(dev, ref)[0], phase_g3(dev)):
+        for name, v in totals.items():
+            launches[name] += v
+    phase_g4_decoders(dev)
+    totals, _ = phase_g2(dev, ref, precision="default")
+    for name, v in totals.items():
+        launches[name] += v
+    print(f"[G] phase G wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEF",
+    ap.add_argument("--phases", default="ABCDEFG",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     phases = ap.parse_args().phases.upper()
@@ -1198,22 +1506,26 @@ def main():
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)",
           flush=True)
 
-    if phases != "ABCDEF":
-        for name, phase in (("A", phase_a), ("B", phase_b), ("C", phase_c),
-                            ("D", phase_d),
+    b_ref = {}                  # phase B's ATE and frames/s, for phase G
+    if phases != "ABCDEFG":
+        for name, phase in (("A", phase_a),
+                            ("B", lambda d: phase_b(d, b_ref)),
+                            ("C", phase_c), ("D", phase_d),
                             ("E", phase_e if phases == "E" else phase_e_child),
-                            ("F", phase_f)):
+                            ("F", phase_f),
+                            ("G", lambda d: phase_g(d, b_ref))):
             if name in phases:
                 phase(dev)
         return
     a = phase_a(dev)
-    launches = phase_b(dev)
+    launches = phase_b(dev, b_ref)
     launches.update(phase_c(dev))
     study = phase_d(dev)
     launches["ray_topk_packed"] += phase_e_child(dev)
     f_launches = phase_f(dev)
+    g_launches = phase_g(dev, b_ref)
     for name in launches:
-        launches[name] += f_launches.get(name, 0)
+        launches[name] += f_launches.get(name, 0) + g_launches.get(name, 0)
     print(json.dumps({"kernels": kernel_records(a, launches)
                       + study_records(study)}))
     print(card_line())

@@ -41,15 +41,33 @@ CUDA_DEFAULTS: Dict[str, Any] = {
         "data_parallel": 1,               # devices a ray batch is split over
         "fused_adam": False,              # the fused row-Adam kernel for
                                           # the packed (CAP, 72) leaf
+        "bf16_features": False,           # render from a bf16 view of the
+                                          # packed leaf (hi+lo bf16
+                                          # positions; Adam steps the f32
+                                          # master): 'auto' (on CUDA) |
+                                          # True | False
+        "mlp_precision": "highest",       # the decoder MLP blocks' matmuls:
+                                          # 'highest' (or None, 'global')
+                                          # IEEE f32; 'default' TF32 on
+                                          # CUDA. The Fourier embeddings stay
+                                          # f32; no effect on the CPU
+        "max_iters_per_launch": 200,      # the mapping loop's chunk: where
+                                          # mapping.vis_inside panels fire
+        "prefetch_depth": 4,              # frames staged ahead by the
+                                          # prefetch thread
+        "profile_dir": None,              # a directory for a torch.profiler
+                                          # Chrome trace of the run
     },
 }
 
 # ``tpu:`` keys of the JAX package's configs with the same name and meaning
-# under ``cuda:``
+# under ``cuda:`` (``mlp_precision`` is not one: the TPU's 'default' is a
+# bf16 MXU pass, the card's TF32)
 TPU_SHARED_KEYS = ("point_capacity_init", "point_capacity_max",
                    "grid_table_size", "grid_max_per_cell",
                    "keyframe_device_budget", "keyframe_host_ring",
-                   "data_parallel")
+                   "data_parallel", "bf16_features", "max_iters_per_launch",
+                   "prefetch_depth", "profile_dir")
 
 
 def update_recursive(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> None:
@@ -108,11 +126,8 @@ def load_config(path: str, default_path: Optional[str] = None
 def check_supported(cfg: Dict[str, Any]) -> None:
     """Raise NotImplementedError for every path this port does not carry
     yet."""
-    mp, tr = cfg["mapping"], cfg["tracking"]
     cuda = cfg.get("cuda", {})
     unsupported = [
-        (mp.get("vis_inside") or tr.get("vis_inside"),
-         "in-loop visualisation (vis_inside)"),
         (int(cuda.get("data_parallel", 1) or 1) > 1,
          "data parallelism (cuda.data_parallel > 1)"),
     ]

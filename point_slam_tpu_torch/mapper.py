@@ -18,6 +18,14 @@ With ``model.encode_exposure`` each window slot carries an exposure latent
 keyframes the window cameras become optimised (quaternion, translation)
 leaves, the oldest keyframe fixed; ``map_frame(color_refine=True)`` reruns
 five random windows over the whole cloud with the colour decoder frozen.
+
+With ``cuda.bf16_features`` every iteration renders from a bf16 view of
+the current f32 master (``pointcloud.encode_render``); Adam steps the
+master and its f32 moments. With a ``vis_hook`` (``mapping.vis_inside``)
+the loop publishes its in-progress cloud at the end of every
+``cuda.max_iters_per_launch`` iterations below the last and calls the
+hook, where the JAX package splits its loop into launches; the loop
+itself is not split.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ class MapperStatic(NamedTuple):
     encode_exposure: bool = False
     ba: bool = False      # bundle adjustment: optimise the window cameras
     fused_adam: bool = False  # the row-Adam kernel for the packed leaf
+    bf16_features: bool = False  # render from the bf16 view of the leaf
 
 
 class KeyframeStore:
@@ -304,7 +313,8 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                  generator: Optional[torch.Generator] = None, draws=None,
                  exposure: Optional[torch.Tensor] = None, cur_slot: int = 0,
                  lr_exposure: float = 0.001, ba: Optional[Dict] = None,
-                 n_live: Optional[int] = None):
+                 n_live: Optional[int] = None, chunk: int = 0,
+                 chunk_hook=None):
     """The per-frame mapping optimisation, a loop of ``n_iters`` iterations.
 
     ``window``: (color (F,H,W,3), depth (F,H,W), r_query (F,H,W),
@@ -326,6 +336,10 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     frustum as its row mask, over its first ``n_live`` rows only (the
     cloud's points; all rows when None): rows past the cloud have zero
     gradient, moments and mask, which Adam leaves bit for bit as they are.
+
+    ``chunk_hook(it_prev, it_now, packed)``, if given, is called after
+    iterations it_now = chunk, 2*chunk, ... below n_iters with the packed
+    leaf as it stands (it_prev = it_now - chunk).
 
     Updates ``dec`` in place and returns (packed, stats (3,) device tensor
     [geo_loss, color_loss, n_mask] of the last iteration, the exposure
@@ -377,7 +391,9 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             if k is not None:
                 leaves[k].requires_grad_(True)
         loss, geo_l, col_l, n_mask = _losses(
-            ms, rc, dec, leaves[0], index, rays,
+            ms, rc, dec,
+            pc.encode_render(leaves[0]) if ms.bf16_features else leaves[0],
+            index, rays,
             c2w_all if i_cam is None else _cam_poses(leaves[i_cam]),
             stage_color=not stage_geo, fill=fill,
             window_exposure=None if i_exp is None else leaves[i_exp])
@@ -430,6 +446,9 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
             stats = torch.stack([geo_l.detach(), col_l.detach(),
                                  n_mask.float()])
+        if chunk_hook is not None and (it + 1) % chunk == 0 \
+                and it + 1 < n_iters:
+            chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach())
     return (leaves[0].detach(), stats,
             None if i_exp is None else leaves[i_exp].detach(),
             None if i_cam is None else leaves[i_cam].detach())
@@ -480,10 +499,7 @@ class Mapper:
         h, w = cam["H"], cam["W"]
         mp = cfg["mapping"]
         pcfg = cfg["pointcloud"]
-        if mp.get("vis_inside"):
-            raise NotImplementedError(
-                "point_slam_tpu_torch does not implement mapping.vis_inside "
-                "yet")
+        cu = cfg["cuda"]
         self.window = mp["mapping_window_size"] * (2 if n_img > 4000 else 1)
         self.ms = MapperStatic(
             h=h, w=w, fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"],
@@ -496,10 +512,15 @@ class Mapper:
             grad_max=max(mp["pixels_based_on_color_grad"], 1),
             grad_top=min(5 * max(mp["pixels_based_on_color_grad"], 1), h * w),
             encode_exposure=bool(cfg["model"]["encode_exposure"]),
-            fused_adam=bool(cfg["cuda"].get("fused_adam", False)))
+            fused_adam=bool(cu.get("fused_adam", False)),
+            bf16_features=R.resolve_auto(cu.get("bf16_features", False),
+                                         self.device))
         self.rc = R.make_render_config(
             cfg, cfg["rendering"]["sigmoid_coef_mapper"], self.device)
-        cu = cfg["cuda"]
+        # set by the orchestrator with mapping.vis_inside: called as
+        # vis_hook(idx, it_prev, it_now, n_iters, cur_c2w) every chunk
+        self.vis_hook = None
+        self.chunk = max(int(cu.get("max_iters_per_launch", 200)), 1)
         self.cloud = pc.init_cloud(cu["point_capacity_init"],
                                    cfg["model"]["c_dim"], pcfg["N_add"],
                                    self.device)
@@ -748,13 +769,21 @@ class Mapper:
                           lo=int(n_iters * (ratio + 0.2)),
                           hi=int(n_iters * (ratio + 0.3)))
 
+            hook = None
+            if self.vis_hook is not None:
+                def hook(it_prev, it_now, packed_now, c2w=cur_c2w_dev):
+                    # publish the in-progress cloud so the panel renders
+                    # the current map (the decoders step in place)
+                    self.cloud = self.cloud._replace(packed=packed_now)
+                    self.vis_hook(idx, it_prev, it_now, n_iters, c2w)
             packed, stats_dev, exp_out, cams_out = map_optimize(
                 ms, self.rc, self.decoders, self.cloud.packed, self.index,
                 (w_color, w_depth, w_rq, w_c2w), n_frames,
                 ms.r_max // n_frames, frustum, lr_geo, lr_col, fix_color,
                 geo_bound, n_iters, generator=self.generator,
                 exposure=w_exp if ms.encode_exposure else None, cur_slot=k,
-                lr_exposure=0.001, ba=ba, n_live=self.n_points_host)
+                lr_exposure=0.001, ba=ba, n_live=self.n_points_host,
+                chunk=self.chunk, chunk_hook=hook)
             self.cloud = self.cloud._replace(packed=packed)
             if ms.encode_exposure:
                 self.exposure_feat = exp_out[k].cpu().numpy()

@@ -21,13 +21,20 @@ JAX parameter tree's names (``pts_linears``, ``fc_c``, ``output_linear``,
   else the 3 raw components.
 
 The kNN runs outside (ops/knn.py), so one search feeds both decoders.
+
+``precision="default"`` (``cuda.mlp_precision``) runs the MLP blocks'
+linears (``pts_linears``, ``fc_c``, ``output_linear``,
+``mlp_col_neighbor``) in TF32 on CUDA, forward and backward, as a JAX dot
+at precision DEFAULT runs its transposes; the Fourier embeddings and the
+exposure MLP stay IEEE f32. On the CPU it changes nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -96,16 +103,62 @@ def fourier_embed(B: torch.Tensor, x: torch.Tensor, concat: bool):
     return torch.sin(proj)
 
 
+@contextlib.contextmanager
+def _tf32():
+    """TF32 for CUDA matmuls inside the block (a process-wide switch); the
+    previous setting is back on exit, an exception's too."""
+    m = torch.backends.cuda.matmul
+    was = m.allow_tf32
+    m.allow_tf32 = True
+    try:
+        yield
+    finally:
+        m.allow_tf32 = was
+
+
+class _TF32Linear(torch.autograd.Function):
+    """x @ W^T + b with the forward and the backward matmuls in TF32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        with _tf32():
+            return F.linear(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = gb = None
+        with _tf32():
+            if need_x:
+                gx = g @ weight
+            if need_w:
+                gw = g2.t() @ x.reshape(-1, x.shape[-1])
+        if need_b:
+            gb = g2.sum(0)
+        return gx, gw, gb
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor,
+            precision: Optional[str] = None) -> torch.Tensor:
+    """One MLP-block linear at ``precision`` (see the module)."""
+    if precision == "default" and x.is_cuda:
+        return _TF32Linear.apply(x, lin.weight, lin.bias)
+    return lin(x)
+
+
 def _block_dims(emb: int, hidden: int):
     return [(emb, hidden)] + [(hidden + emb if i == SKIP else hidden, hidden)
                               for i in range(N_BLOCKS - 1)]
 
 
-def _mlp_forward(pts_linears, fc_c, emb, c, act):
+def _mlp_forward(pts_linears, fc_c, emb, c, act, precision=None):
     h = emb
     for i in range(N_BLOCKS):
-        h = act(pts_linears[i](h))
-        h = h + fc_c[i](c)
+        h = act(_linear(pts_linears[i], h, precision))
+        h = h + _linear(fc_c[i], c, precision)
         if i == SKIP:
             h = torch.cat([emb, h], dim=-1)
     return h
@@ -125,10 +178,12 @@ class GeoDecoder(nn.Module):
                                    for _ in range(N_BLOCKS)])
         self.output_linear = _dense(GEO_HIDDEN, 1, "relu", generator)
 
-    def forward(self, p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: torch.Tensor, c: torch.Tensor,
+                precision: Optional[str] = None) -> torch.Tensor:
         emb = fourier_embed(self.embedder_B, p, concat=False)
-        h = _mlp_forward(self.pts_linears, self.fc_c, emb, c, torch.relu)
-        return self.output_linear(h)[..., 0]
+        h = _mlp_forward(self.pts_linears, self.fc_c, emb, c, torch.relu,
+                         precision)
+        return _linear(self.output_linear, h, precision)[..., 0]
 
 
 class ColorDecoder(nn.Module):
@@ -167,7 +222,8 @@ class ColorDecoder(nn.Module):
     def forward(self, p: torch.Tensor, c: torch.Tensor,
                 apply_sigmoid: bool = True,
                 exposure_feat: torch.Tensor | None = None,
-                views_d: torch.Tensor | None = None) -> torch.Tensor:
+                views_d: torch.Tensor | None = None,
+                precision: Optional[str] = None) -> torch.Tensor:
         """RGB (N, 3). ``views_d`` (N, 3): the samples' view directions
         (with ``use_view_direction``), normalised here. With
         ``exposure_feat`` (one latent) the exposure affine is applied, then
@@ -180,8 +236,9 @@ class ColorDecoder(nn.Module):
                 vnorm = fourier_embed(self.embedder_view_B, vnorm,
                                       concat=True)
             emb = torch.cat([emb, vnorm], dim=-1)
-        h = _mlp_forward(self.pts_linears, self.fc_c, emb, c, softplus100)
-        out = self.output_linear(h)
+        h = _mlp_forward(self.pts_linears, self.fc_c, emb, c, softplus100,
+                         precision)
+        out = _linear(self.output_linear, h, precision)
         if exposure_feat is not None:
             rot, trans = self.exposure_affine(exposure_feat)
             return torch.sigmoid(out @ rot + trans)
@@ -194,7 +251,8 @@ class ColorDecoder(nn.Module):
         return aff[..., :9].reshape(*aff.shape[:-1], 3, 3), aff[..., 9:]
 
     def encode_neighbor_feats(self, neighbor_pos: torch.Tensor,
-                              p: torch.Tensor, neighbor_feats: torch.Tensor
+                              p: torch.Tensor, neighbor_feats: torch.Tensor,
+                              precision: Optional[str] = None
                               ) -> torch.Tensor:
         """F_theta: (N,K,c) neighbour features + relative-position Fourier
         encoding -> (N,K,c)."""
@@ -204,7 +262,8 @@ class ColorDecoder(nn.Module):
         emb = emb.reshape(neighbor_pos.shape[0], -1, 2 * REL_EMB)
         x = torch.cat([emb, neighbor_feats], dim=-1)
         mp = self.mlp_col_neighbor
-        return mp["l2"](softplus100(mp["l1"](x)))
+        return _linear(mp["l2"], softplus100(_linear(mp["l1"], x, precision)),
+                       precision)
 
 
 class Decoders(nn.Module):

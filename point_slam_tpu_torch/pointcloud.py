@@ -41,6 +41,51 @@ class CloudState(NamedTuple):
         return self.packed[:, POS_SL]
 
 
+# ------------------------------------------- bf16 render view (cuda.bf16_features)
+#
+# ``encode_render`` makes a (CAP, 72) bf16 view of the f32 master for the
+# render path: the feature columns cast to bf16 (differentiable, so the
+# neighbour gather's backward scatter-add runs at bf16 width and arrives
+# as an f32 gradient on the master), the positions as a hi+lo bf16 pair a
+# component (~1.5e-5 relative error, against 2e-3 for one bf16). hi is the
+# TRUNCATED upper half of the f32 bits, as in the JAX package, so f32(hi)
+# is exact and lo = pos - f32(hi) loses only its own rounding; a
+# round-to-nearest cast would give another hi in about half the lanes.
+POS_HI_SL = slice(2 * C_DIM, 2 * C_DIM + 3)
+POS_LO_SL = slice(2 * C_DIM + 3, 2 * C_DIM + 6)
+
+
+def encode_render(packed: torch.Tensor) -> torch.Tensor:
+    """(CAP, 72) f32 master -> (CAP, 72) bf16 render view: differentiable
+    in the feature columns; the position lanes carry no gradient."""
+    feats = packed[:, GEO_SL.start:COL_SL.stop].to(torch.bfloat16)
+    pos = packed[:, POS_SL].detach().contiguous()
+    bits = pos.view(torch.int32)
+    hi = (bits >> 16).to(torch.int16).view(torch.bfloat16)
+    hi_f32 = (bits & -65536).view(torch.float32)
+    lo = (pos - hi_f32).to(torch.bfloat16)
+    pad = torch.zeros((packed.shape[0], PACK_W - POS_LO_SL.stop),
+                      dtype=torch.bfloat16, device=packed.device)
+    return torch.cat([feats, hi, lo, pad], dim=1)
+
+
+def neighbor_geo(nb: torch.Tensor) -> torch.Tensor:
+    """Geometry-feature columns of gathered rows, as f32 (either layout)."""
+    return nb[..., GEO_SL].float()
+
+
+def neighbor_col(nb: torch.Tensor) -> torch.Tensor:
+    """Colour-feature columns of gathered rows, as f32 (either layout)."""
+    return nb[..., COL_SL].float()
+
+
+def neighbor_pos(nb: torch.Tensor) -> torch.Tensor:
+    """Positions of gathered rows, as f32 (the hi+lo pair decoded)."""
+    if nb.dtype == torch.bfloat16:
+        return nb[..., POS_HI_SL].float() + nb[..., POS_LO_SL].float()
+    return nb[..., POS_SL]
+
+
 def _empty_rows(n: int, device) -> torch.Tensor:
     rows = torch.zeros((n, PACK_W), device=device)
     rows[:, POS_SL] = 1e6

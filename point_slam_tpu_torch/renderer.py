@@ -40,6 +40,9 @@ class RenderConfig(NamedTuple):
     # ray-shared kNN (ops/knn.ray_grid_knn, the CUDA kernel on the card)
     ray_knn: bool = False
     knn_probes: int = 36
+    # the decoder MLP blocks' matmul precision: None (IEEE f32) or
+    # 'default' (TF32 on CUDA); the Fourier embeddings stay f32
+    mlp_precision: Optional[str] = None
 
 
 def resolve_auto(mode, device) -> bool:
@@ -52,8 +55,12 @@ def resolve_auto(mode, device) -> bool:
 def make_render_config(cfg: Dict[str, Any], sigmoid_coef: float,
                        device) -> RenderConfig:
     cu = cfg["cuda"]
+    mlp_prec = cu.get("mlp_precision")
+    if mlp_prec in ("", "global", "highest"):
+        mlp_prec = None
     return RenderConfig(
         ray_knn=resolve_auto(cu.get("ray_knn", "auto"), device),
+        mlp_precision=mlp_prec,
         knn_probes=int(cu.get("knn_probes", 0)) or knn._P_RAY_DEFAULT,
         n_surface=cfg["rendering"]["N_surface"],
         near_end=cfg["rendering"]["near_end"],
@@ -137,7 +144,8 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
                 fill: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 exposure_feat: Optional[torch.Tensor] = None):
-    """Render a ray batch from the (CAP, 72) packed cloud.
+    """Render a ray batch from the (CAP, 72) packed cloud, f32 or its
+    bf16 view (``pointcloud.encode_render``).
 
     ``fill``: the (2, 32) random-fill vectors for samples without
     neighbours (geometry, colour); drawn from ``generator`` otherwise.
@@ -162,7 +170,7 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
 
     dists, idx, valid = _knn_core(index, pts, rc)
     nb = packed[idx]                                          # (N,K,72)
-    neigh_pos = nb[..., pc.POS_SL].detach()
+    neigh_pos = pc.neighbor_pos(nb).detach()
     if rc.ray_knn or is_tracker:
         # exact distances from the winners (the ray kNN's are quantised);
         # differentiable in the sample points for the tracker
@@ -173,28 +181,30 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
     has_neighbors = counts > rc.min_nn_num - 1
 
     w = D.interpolation_weights(dists, valid, r_query_pts, rc.weighting)
-    c_geo = torch.sum(w[..., None] * nb[..., pc.GEO_SL], dim=1)
+    c_geo = torch.sum(w[..., None] * pc.neighbor_geo(nb), dim=1)
     c_geo = D.random_fill_features(c_geo, has_neighbors, fill[0])
-    occ = dec.geo(p, c_geo)
+    prec = rc.mlp_precision
+    occ = dec.geo(p, c_geo, precision=prec)
 
     valid_ray = torch.sum(has_neighbors.reshape(r, ns), dim=1) >= (ns // 2 + 1)
     valid_ray = valid_ray & near_pcl_ok
 
     if stage_color:
-        neigh_feats = nb[..., pc.COL_SL]
+        neigh_feats = pc.neighbor_col(nb)
         if rc.encode_rel_pos_in_col:
-            neigh_feats = dec.col.encode_neighbor_feats(neigh_pos, p,
-                                                        neigh_feats)
+            neigh_feats = dec.col.encode_neighbor_feats(
+                neigh_pos, p, neigh_feats, precision=prec)
         c_col = torch.sum(w[..., None] * neigh_feats, dim=1)
         c_col = D.random_fill_features(c_col, has_neighbors, fill[1])
         views_d = (rays_d.repeat_interleave(ns, dim=0)
                    if rc.use_view_direction else None)
         if rc.encode_exposure and exposure_feat is not None:
             rgb = dec.col(p, c_col, exposure_feat=exposure_feat,
-                          views_d=views_d)
+                          views_d=views_d, precision=prec)
         else:
             rgb = dec.col(p, c_col, apply_sigmoid=apply_sigmoid_color
-                          and not rc.encode_exposure, views_d=views_d)
+                          and not rc.encode_exposure, views_d=views_d,
+                          precision=prec)
     else:
         rgb = torch.zeros((p.shape[0], 3), device=p.device)
 

@@ -7,6 +7,15 @@ every later frame is tracked (frame 1 takes its GT pose), and every
 refinement. A prefetch thread reads the next frames in wire form, copies
 them to the device and computes their radius maps while the current frame
 runs. The port runs on CUDA unless the caller asks for ``device="cpu"``.
+
+Panels (``utils/visualizer.py``): after each mapped frame into
+``mapping_vis/`` (with ``mapping.save_rendered_image`` the rendered colour
+into ``rendered_image/``), or with ``mapping.vis_inside`` inside the
+mapping loop instead; after each tracked, unmapped frame into
+``tracking_vis/`` (and inside the loop with ``tracking.vis_inside``).
+Frame 0, mapped before the loop, gets none, as in the JAX package. With
+``cuda.profile_dir`` the run is traced by ``torch.profiler`` into a Chrome
+trace there.
 """
 
 from __future__ import annotations
@@ -99,7 +108,8 @@ class PointSLAM:
         # wall-clock buckets (disjoint; sum to wall_active): track/map the
         # two optimisation phases, wait = blocked on the prefetch thread,
         # io = direct dataset reads on the main thread (frame 0), log = the
-        # metrics sink, checkpoints and point-cloud dumps, other = the
+        # end-of-frame panels, the metrics sink, checkpoints and
+        # point-cloud dumps, other = the
         # per-frame remainder
         self.timing: Dict[str, float] = {
             "track": 0.0, "map": 0.0, "io": 0.0, "wait": 0.0, "log": 0.0,
@@ -109,6 +119,45 @@ class PointSLAM:
         from point_slam_tpu_torch.utils.mlog import MetricsLogger
         self.mlog = MetricsLogger(self.output, cfg,
                                   name=f"slam_{cfg.get('scene', 'scene')}")
+        self._init_visualizers()
+
+    def _init_visualizers(self) -> None:
+        """The tracking and mapping visualizers, and with vis_inside their
+        hooks in the loops, which find the frame's depth and colour in
+        ``_track_vis_frame`` / ``_map_vis_frame`` (set per frame)."""
+        from point_slam_tpu_torch.utils.visualizer import Visualizer
+        cfg, tr, mp = self.cfg, self.cfg["tracking"], self.cfg["mapping"]
+        self.track_vis = Visualizer(
+            tr["vis_freq"], tr["vis_inside_freq"],
+            os.path.join(self.output, "tracking_vis"), verbose=self.verbose,
+            vis_inside=bool(tr.get("vis_inside", False)))
+        self.map_vis = Visualizer(
+            mp["vis_freq"], mp["vis_inside_freq"],
+            os.path.join(self.output, "mapping_vis"), verbose=self.verbose,
+            vis_inside=bool(mp.get("vis_inside", False)),
+            img_dir=os.path.join(self.output, "rendered_image")
+            if mp["save_rendered_image"] else None)
+        self._track_vis_frame: Dict[int, Any] = {}
+        self._map_vis_frame: Dict[int, Any] = {}
+        if self.map_vis.vis_inside:
+            def map_hook(idx, it_prev, it_now, n_iters, cur_c2w):
+                depth, color = self._map_vis_frame.get(idx, (None, None))
+                if depth is not None:
+                    self.map_vis.vis_chunk(idx, it_prev, it_now, n_iters,
+                                           self.mapper, cur_c2w, depth,
+                                           color)
+            self.mapper.vis_hook = map_hook
+        if self.track_vis.vis_inside:
+            def track_hook(idx, it, total, cam):
+                depth, color = self._track_vis_frame.get(idx, (None, None))
+                if depth is None or idx % self.track_vis.freq != 0:
+                    return
+                from point_slam_tpu_torch.common import camera
+                c2w = np.eye(4, dtype=np.float32)
+                c2w[:3, :4] = camera.pose_matrix_from_tensor(cam).cpu().numpy()
+                self.track_vis.vis(idx, it, total, self.mapper, c2w, depth,
+                                   color, freq_override=True)
+            self.tracker.vis_hook = track_hook
 
     def _frame(self, idx):
         t0 = time.perf_counter()
@@ -120,7 +169,27 @@ class PointSLAM:
             resume_from: Optional[str] = None) -> Dict[str, Any]:
         """Track and map frames 0..stop (all of them by default), or, with
         ``resume_from`` (a checkpoint path), the frames after the
-        checkpoint's."""
+        checkpoint's. With ``cuda.profile_dir`` the whole run is traced and
+        the trace written there, also when the run fails."""
+        profile_dir = self.cfg["cuda"].get("profile_dir")
+        if not profile_dir:
+            return self._run(stop, resume_from)
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        try:
+            return self._run(stop, resume_from)
+        finally:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"))
+
+    def _run(self, stop: Optional[int], resume_from: Optional[str]
+             ) -> Dict[str, Any]:
         from point_slam_tpu_torch.common import image as image_ops
         from point_slam_tpu_torch.utils.logger import (load_checkpoint,
                                                        restore_slam,
@@ -171,9 +240,9 @@ class PointSLAM:
             return (i, color_d, depth_d, self.mapper.radius_maps(color_d),
                     c2w)
 
-        prefetcher = FramePrefetcher(self.dataset, depth=4, start=start,
-                                     stop=n, stage=_stage,
-                                     fetch=self.dataset.wire)
+        prefetcher = FramePrefetcher(
+            self.dataset, depth=int(cfg["cuda"].get("prefetch_depth", 4)),
+            start=start, stop=n, stage=_stage, fetch=self.dataset.wire)
         pf_iter = iter(prefetcher)
         while True:
             t0 = time.perf_counter()
@@ -186,6 +255,10 @@ class PointSLAM:
             acc0 = tm["track"] + tm["map"] + tm["log"]
             self.gt_c2w_list[idx] = gt_c2w
             ef = 1 if (lazy and idx <= lazy) else every
+            if self.track_vis.vis_inside:
+                self._track_vis_frame = {idx: (depth, color)}
+            if self.map_vis.vis_inside:
+                self._map_vis_frame = {idx: (depth, color)}
 
             t0 = time.perf_counter()
             res = self.tracker.track_frame(
@@ -227,6 +300,14 @@ class PointSLAM:
                 t0 = time.perf_counter()
                 self.mlog.log({"idx_map": idx, **{
                     k: v for k, v in st.items() if k != "cur_c2w"}})
+                # with vis_inside the panels fired inside the loop
+                if not self.map_vis.vis_inside:
+                    self.mlog.log_image("mapping_vis", self.map_vis.vis(
+                        idx, st["n_iters"] - 1, st["n_iters"], self.mapper,
+                        self.estimate_c2w_list[idx], depth, color,
+                        save_rendered_image=cfg["mapping"][
+                            "save_rendered_image"],
+                        r_query=radius[1]), step=idx)
                 if ckpt_freq and idx % ckpt_freq == 0 and idx != n - 1:
                     save_checkpoint(os.path.join(
                         self.output, "ckpts", f"{idx:05d}.npz"), self, idx)
@@ -235,6 +316,13 @@ class PointSLAM:
                 if idx > 0 and idx % 300 == 0 and idx != n - 1:
                     self._dump_point_cloud(log_points_step=idx,
                                            write_files=False)
+                tm["log"] += time.perf_counter() - t0
+            elif res.get("tracked"):
+                t0 = time.perf_counter()
+                self.mlog.log_image("tracking_vis", self.track_vis.vis(
+                    idx, self.tracker.iters - 1, self.tracker.iters,
+                    self.mapper, self.estimate_c2w_list[idx], depth, color,
+                    r_query=radius[1]), step=idx)
                 tm["log"] += time.perf_counter() - t0
             self.frame_times[idx] = {"track": t_track, "map": t_map}
             tm["other"] += (time.perf_counter() - t_frame0

@@ -11,6 +11,12 @@ host sync per iteration): with separate_LR it stores the pre-step camera,
 otherwise the post-step one, and the quaternion gets 0.2x the learning
 rate. The motion model and the quaternion hemisphere alignment against the
 GT pose run on the host.
+
+With ``cuda.bf16_features`` the loop renders from the cloud's bf16 view,
+encoded once a frame (the map does not move while the pose does). With a
+``vis_hook`` (``tracking.vis_inside``) the hook sees the current camera
+after every ``vis_inside_freq``-th iteration below the last; it only
+observes, so the loop's numbers do not change.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from point_slam_tpu_torch import pointcloud as pc
 from point_slam_tpu_torch import renderer as R
 from point_slam_tpu_torch.common import camera, image, sampling
 from point_slam_tpu_torch.ops import adam
@@ -42,6 +49,7 @@ class TrackerStatic(NamedTuple):
     separate_lr: bool
     sample_with_color_grad: bool = False
     grad_top: int = 0     # size of the top-gradient candidate pool
+    bf16_features: bool = False  # render from the bf16 view of the cloud
 
 
 def sample_pixels(ts: TrackerStatic, generator: torch.Generator, device):
@@ -120,16 +128,21 @@ def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
                    gt_color, gt_depth, r_query_map, cam_init: torch.Tensor,
                    lr: float, n_iters: int,
                    generator: Optional[torch.Generator] = None, draws=None,
-                   pool=None, exposure_feat: Optional[torch.Tensor] = None):
+                   pool=None, exposure_feat: Optional[torch.Tensor] = None,
+                   hook=None, hook_every: int = 0):
     """Optimise the camera for one frame.
 
     ``pool``: the (cand_idx, cand_ok) candidate pool, with
     ``ts.sample_with_color_grad``. ``draws``: optional per-iteration list
     of (i, j, fill), or of (scores over the pool, fill) when sampling from
-    the pool; drawn from ``generator`` otherwise. Returns (best_cam (7,),
+    the pool; drawn from ``generator`` otherwise. ``hook(it, cam)``, if
+    given, is called after iterations it = hook_every, 2*hook_every, ...
+    below n_iters with the current (7,) camera. Returns (best_cam (7,),
     final_cam (7,), first_loss, best_loss) as device tensors.
     """
     dev = cam_init.device
+    if ts.bf16_features:
+        packed = pc.encode_render(packed)
     quad = cam_init[:4].clone().requires_grad_(True)
     trans = cam_init[4:].clone().requires_grad_(True)
     state = adam.init_state([quad, trans])
@@ -166,6 +179,9 @@ def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
                 first_loss = loss.detach()
         quad = new_q.requires_grad_(True)
         trans = new_t.requires_grad_(True)
+        if hook is not None and (it + 1) % hook_every == 0 \
+                and it + 1 < n_iters:
+            hook(it + 1, torch.cat([quad, trans]).detach())
     final_cam = torch.cat([quad, trans]).detach()
     return best_cam, final_cam, first_loss, best_loss
 
@@ -179,10 +195,6 @@ class Tracker:
         self.device = torch.device(device)
         cam = cfg["cam"]
         tr = cfg["tracking"]
-        if tr.get("vis_inside"):
-            raise NotImplementedError(
-                "point_slam_tpu_torch does not implement tracking.vis_inside"
-                " yet")
         self.ts = TrackerStatic(
             h=cam["H"], w=cam["W"], fx=cam["fx"], fy=cam["fy"],
             cx=cam["cx"], cy=cam["cy"], pixels=tr["pixels"],
@@ -191,7 +203,9 @@ class Tracker:
             use_color=tr["use_color_in_tracking"],
             w_color_loss=tr["w_color_loss"], separate_lr=tr["separate_LR"],
             sample_with_color_grad=bool(tr["sample_with_color_grad"]),
-            grad_top=min(15 * tr["pixels"], cam["H"] * cam["W"]))
+            grad_top=min(15 * tr["pixels"], cam["H"] * cam["W"]),
+            bf16_features=R.resolve_auto(
+                cfg["cuda"].get("bf16_features", False), self.device))
         self.rc = R.make_render_config(
             cfg, cfg["rendering"]["sigmoid_coef_tracker"], self.device)
         self.lr = tr["lr"]
@@ -200,6 +214,10 @@ class Tracker:
         self.const_speed = tr["const_speed_assumption"]
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(cfg["setup_seed"]) + 1)
+        # set by the orchestrator with tracking.vis_inside: called as
+        # vis_hook(idx, it, iters, cam (7,)) inside the loop
+        self.vis_hook = None
+        self.inside_freq = max(int(tr.get("vis_inside_freq", 50)), 1)
 
     def initial_pose(self, idx: int, estimate_c2w_list: np.ndarray,
                      gt_c2w: np.ndarray) -> np.ndarray:
@@ -236,11 +254,15 @@ class Tracker:
                                device=self.device)
                if exposure_feat is not None and self.rc.encode_exposure
                else None)
+        hook = None
+        if self.vis_hook is not None:
+            def hook(it, cam):
+                self.vis_hook(idx, it, self.iters, cam)
         best_cam, _, first_loss, best_loss = track_optimize(
             self.ts, self.rc, mapper.decoders, mapper.cloud.packed,
             mapper.index, gt_color, gt_depth, r_query_map, cam_init,
             self.lr, self.iters, generator=self.generator, pool=pool,
-            exposure_feat=exp)
+            exposure_feat=exp, hook=hook, hook_every=self.inside_freq)
         # one host fetch per frame
         vals = torch.cat([camera.pose_matrix_from_tensor(best_cam).reshape(-1),
                           first_loss[None], best_loss[None]]).cpu().numpy()

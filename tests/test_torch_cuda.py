@@ -395,3 +395,56 @@ def test_host_keyframe_ring_window_equals_the_device_ring_on_cuda():
             assert a.device.type == b.device.type == "cuda"
             assert torch.equal(a, b)
     assert stores[1]._staging.is_pinned()
+
+
+@pytest.mark.cuda
+def test_bf16_view_on_cuda_equals_the_cpu():
+    """encode_render's bits on the card equal the host's; the gather's
+    backward through the view (bf16 atomics on the card, in no fixed
+    order) lands within bf16 rounding of the host's f32 gradient."""
+    from point_slam_tpu_torch import pointcloud as pc
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.normal(size=(4096, pc.PACK_W)) * 4)
+                         .astype(np.float32))
+    x[:16, pc.POS_SL] = 1e6
+    assert torch.equal(pc.encode_render(x.to(dev)).view(torch.int16).cpu(),
+                       pc.encode_render(x).view(torch.int16))
+    idx = torch.from_numpy(rng.integers(0, 4096, (20000, 8)))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        p = x.to(d).requires_grad_(True)
+        rows = pc.encode_render(p)[idx.to(d)]
+        (pc.neighbor_geo(rows) * 0.5 + pc.neighbor_col(rows)).sum().backward()
+        grads.append(p.grad.cpu())
+    assert grads[0].dtype == torch.float32
+    assert torch.equal(grads[0][:, pc.POS_SL.start:],
+                       torch.zeros_like(grads[0][:, pc.POS_SL.start:]))
+    torch.testing.assert_close(grads[0], grads[1], rtol=2 ** -7, atol=0.5)
+
+
+@pytest.mark.cuda
+def test_mlp_precision_default_runs_the_blocks_in_tf32_on_cuda():
+    """'default': the MLP-block linears in TF32 forward and backward
+    (different from IEEE f32, within 1e-2 of max |out|), the switch off
+    again after; 'highest' bit-equal to no setting."""
+    from point_slam_tpu_torch.models import decoders as D
+    dev = cuda_or_skip()
+    dec = D.Decoders({"model": {"c_dim": 32}},
+                     generator=torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    p = 2 * torch.rand((5000, 3), generator=g, device=dev) - 1
+    c = 0.1 * torch.randn((5000, 32), generator=g, device=dev)
+    out = {}
+    for prec in (None, "highest", "default"):
+        dec.zero_grad()
+        x = c.clone().requires_grad_(True)
+        y = dec.col(p, x, precision=prec)
+        y.square().sum().backward()
+        out[prec] = (y.detach(), x.grad, dec.col.pts_linears[0].weight.grad
+                     .clone())
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert all(torch.equal(a, b) for a, b in zip(out[None], out["highest"]))
+    for a, b in zip(out["default"], out[None]):
+        assert not torch.equal(a, b)
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-2

@@ -154,6 +154,18 @@ def test_config_tree_matches_jax(name):
     tcfg.pop("tpu", None)
     tcuda = tcfg.pop("cuda")
     assert tcfg == jcfg
+    # the run keys of this slice and the visualiser's, explicitly
+    for k in ("prefetch_depth", "max_iters_per_launch", "bf16_features",
+              "profile_dir"):
+        assert tcuda[k] == jtpu[k], k
+    for sec, k in [(s, k) for s in ("tracking", "mapping")
+                   for k in ("vis_freq", "vis_inside", "vis_inside_freq")]:
+        assert tcfg[sec][k] == jcfg[sec][k], (sec, k)
+    assert tcfg["mapping"]["save_rendered_image"] == \
+        jcfg["mapping"]["save_rendered_image"]
+    # mlp_precision is the port's own: 'default' is TF32 here, a bf16 MXU
+    # pass on the TPU; the port keeps IEEE f32 by default
+    assert tcuda.pop("mlp_precision") == "highest"
     for k, v in tcuda.items():
         assert v == jtpu[k], k
 
@@ -163,12 +175,11 @@ def test_cuda_defaults_hold_only_the_slice_knobs():
         "point_capacity_init", "point_capacity_max", "grid_table_size",
         "grid_max_per_cell", "knn_probes", "ray_knn", "knn_packed_coords",
         "keyframe_device_budget", "keyframe_host_ring", "data_parallel",
-        "fused_adam"}
+        "fused_adam", "bf16_features", "mlp_precision",
+        "max_iters_per_launch", "prefetch_depth", "profile_dir"}
 
 
 OUT_OF_SLICE = [
-    ({"mapping": {"vis_inside": True}}, "vis_inside"),
-    ({"tracking": {"vis_inside": True}}, "vis_inside"),
     ({"cuda": {"data_parallel": 2}}, "data parallelism"),
 ]
 
@@ -191,6 +202,10 @@ SENSOR_SLICE = [
     ({"cuda": {"fused_adam": True}}, "row-Adam"),
     ({"wandb": True}, "metrics sink"),
     ({"cuda": {"keyframe_host_ring": True}}, "keyframe ring"),
+    ({"mapping": {"vis_inside": True}}, "mapping vis_inside"),
+    ({"tracking": {"vis_inside": True}}, "tracking vis_inside"),
+    ({"cuda": {"bf16_features": True}}, "bf16 view"),
+    ({"cuda": {"mlp_precision": "default"}}, "TF32 MLP blocks"),
 ]
 
 
@@ -198,8 +213,8 @@ SENSOR_SLICE = [
                          ids=[w for _, w in SENSOR_SLICE])
 def test_sensor_slice_paths_pass_the_check(override, what):
     """The paths the port carries (those of the sensor-shaped slice, the
-    metrics sink's wandb mirror and the host keyframe ring) are no longer
-    refused."""
+    metrics sink's wandb mirror, the host keyframe ring, the in-loop
+    visualisation and the render-path keys) are no longer refused."""
     _, cfg = tiny_cfgs(4)
     tconfig.update_recursive(cfg, override)
     tconfig.check_supported(cfg)
