@@ -107,7 +107,31 @@ non-zero with no result line otherwise. In one pass it:
    switch off again after it and the prefetch thread's grey conversion
    unchanged under it; then phase B again with 'default': ATE without
    alignment under 2 cm, frames/s;
-9. prints one JSON line of the kernels, the card again, and last the line
+9. phase H: data parallelism (``point_slam_tpu_torch/parallel/dist.py``).
+   H1 runs phase B's configuration over frames 0-6 (iters_first cut to
+   H1_ITERS_FIRST) at ``data_parallel`` 2: two processes sharing the one
+   card in a gloo group over a FileStore (NCCL refuses two ranks on one
+   device), against the same configuration in one process without a
+   group, both under deterministic mode. Checks: K1 ran in tracking and
+   mapping on both ranks, the ranks' clouds, decoders and poses are
+   bit-equal, map 0's points (from the GT pose) equal world size 1's and
+   after map 0's first iteration its features lie within 2e-3 of world
+   size 1's in all but H_FEAT_SHARE of the entries (the share after
+   iterations 10, 100 and the last is printed: rounding differences grow
+   through Adam), ATE without alignment under 2 cm; prints both runs'
+   frames/s (W=2 shares the card's SMs: not a scaling result) and the
+   bytes all-reduced a mapping iteration. H2
+   runs phase C's configuration over frames 0-4 (colour refinement off)
+   at ``data_parallel`` 2: K3 and K4 (once a mapping iteration) on both
+   ranks, bit-equal replicas, ATE without alignment under 2 cm. H3, in a
+   process of its own under deterministic mode: phase B's configuration
+   over frames 0-2 in an NCCL group of one, bit-equal to the run without
+   a group; ``tools/determinism.py --device cuda --self_check`` must
+   print DETERMINISTIC; ``tools/pretrain_geo.py --device cuda --scenes 1
+   --frames 4`` writes an npz under output/, which a 3-frame run loads
+   (frozen) and renders finite. Prints each cut as ``[H] cut:`` and the
+   phase's wall time; the ranks' launches go into the kernels line;
+10. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -175,6 +199,33 @@ G1_PANELS = {"tracking_vis": ["00005_0020"],
 G3_FRAMES = 5
 G4_POINTS = 25000           # a mapping batch: 5000 rays x 5 samples
 G4_REL = 2e-2               # TF32 against IEEE f32, relative to max |out|
+# phase H: data parallelism. H1 (phase B's configuration over frames 0-6)
+# and H2 (phase C's over frames 0-4) at data_parallel 2: two processes on
+# the one card in a gloo group (NCCL refuses two ranks on one device),
+# under deterministic mode; H1 also in one process without a group. At
+# world size 2 each render and MLP runs at half the rays (other GEMM
+# kernels, other rounding), and Adam steps an entry whose gradient is at
+# the rounding's level by its whole learning rate; over hundreds of
+# iterations such steps move the features far apart (PERF.md §6).
+# So H1 holds the all-reduced gradient of map 0's first iteration to
+# world size 1's within H1_GRAD_REL of its norm (one rank's half lands
+# far outside), map 0's features after that iteration (H1_HELD_AT) within
+# test_parallel.py's 2e-3 in all but H_FEAT_SHARE of the entries, and
+# prints the share after H1_SNAPSHOTS iterations. H3 in a process of its own: an NCCL group of one over
+# frames 0-2, the determinism harness, pretrain_geo
+H_WORLD = 2
+H1_FRAMES = 7
+H1_ITERS_FIRST = 300        # H1's depth cut (phase B's: 1500)
+H2_FRAMES = 5
+H3_FRAMES = 3
+H3_ITERS_FIRST = 300        # H3's depth cut (phase B's: 1500)
+H_TIMEOUT_S = 600           # the groups' timeout and the ranks' join limit
+H_FEAT_TOL = 2e-3           # tests/test_parallel.py's feature tolerance
+H_FEAT_SHARE = 1e-4         # tests/test_torch_parallel.py's STEP_FLIPS
+H1_HELD_AT = 1
+H1_SNAPSHOTS = (1, 10, 100)
+H1_GRAD_REL = 1e-3          # map 0's first all-reduced gradient vs W=1's
+H3_LAUNCHES_TAG = "[H3] ray_topk_packed launches in phase H3:"
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
@@ -1475,18 +1526,483 @@ def phase_g(dev, ref):
     return launches
 
 
+def snapshot_map0(store):
+    """A run_slam setup: keep the live rows of the cloud after map 0 in
+    ``store["map0"]``, and after map 0's iterations H1_SNAPSHOTS in
+    ``store["map0_at"]`` (the mapping loop's hook fires after every
+    cuda.max_iters_per_launch iterations; H1 sets it to 1); map 0's first
+    gradient bucket (the flat packed-prefix, decoder and statistics
+    gradients that the loop hands to ``parallel.dist.all_reduce_flat``)
+    before and after the reduction in ``store["grad0_local"]`` and
+    ``store["grad0"]``; and the bytes all-reduced while mapping in
+    ``store["map_bytes"]``."""
+    def setup(slam):
+        import torch
+        from point_slam_tpu_torch.parallel import dist as pdist
+        inner = slam.mapper.map_frame
+        reduce = pdist.all_reduce_flat
+        store["map_bytes"] = 0
+        store["map0_at"] = {}
+
+        def flat(tensors):
+            return torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+
+        def capture(tensors):
+            first = "grad0" not in store
+            if first:
+                store["grad0_local"] = flat(tensors)
+            reduce(tensors)
+            if first:
+                store["grad0"] = flat(tensors)
+
+        def hook(idx, it_prev, it_now, n_iters, c2w):
+            if idx == 0 and it_now in H1_SNAPSHOTS:
+                m = slam.mapper
+                store["map0_at"][it_now] = \
+                    m.cloud.packed[:m.n_points_host].cpu().numpy()
+        slam.mapper.vis_hook = hook
+
+        def wrapped(idx, *a, **kw):
+            sent = pdist.SENT["all_reduce"]
+            if idx == 0:
+                pdist.all_reduce_flat = capture
+            try:
+                out = inner(idx, *a, **kw)
+            finally:
+                pdist.all_reduce_flat = reduce
+            store["map_bytes"] += pdist.SENT["all_reduce"] - sent
+            if idx == 0:
+                m = slam.mapper
+                store["map0"] = m.cloud.packed[:m.n_points_host].cpu().numpy()
+            return out
+        slam.mapper.map_frame = wrapped
+    return setup
+
+
+def h_config(job, dp):
+    """H1: phase B's configuration over frames 0-6 (depth cut); H2: phase
+    C's over frames 0-4; at ``data_parallel`` dp."""
+    if job == "H1":
+        cfg = bench_config(H1_FRAMES)
+        cfg["mapping"]["iters_first"] = H1_ITERS_FIRST
+        cfg["cuda"].update({"knn_packed_coords": True,
+                            "max_iters_per_launch": 1})
+    else:
+        cfg = sensor_config()
+        cfg["synthetic"]["n_frames"] = H2_FRAMES
+        cfg["mapping"]["color_refine"] = False
+    cfg["cuda"]["data_parallel"] = dp
+    cfg["verbose"] = False
+    cfg["data"]["output"] = os.path.join(HERE, "output",
+                                         f"chip_smoke_{job}_dp{dp}")
+    return cfg
+
+
+def h_run(dev, job, dp):
+    """One run of ``job`` under deterministic mode: what phase H compares
+    of it (host arrays)."""
+    import warnings
+    import torch
+    store = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        t0 = time.perf_counter()
+        summary, slam, per_phase, totals = run_slam(
+            dev, h_config(job, dp), snapshot_map0(store))
+        wall = time.perf_counter() - t0
+    m = slam.mapper
+    stats = m.frame_stats
+    return {"packed": m.cloud.packed[:m.n_points_host].cpu().numpy(),
+            "decoders": {k: v.cpu().numpy()
+                         for k, v in m.decoders.state_dict().items()},
+            "est": summary["estimate_c2w_list"],
+            "gt": summary["gt_c2w_list"], "map0": store["map0"],
+            "map0_at": store["map0_at"], "grad0": store["grad0"],
+            "grad0_local": store["grad0_local"],
+            "fps": frames_per_s(summary), "wall": wall,
+            "map_iters": sum(st["n_iters"] * st["outer_loops"]
+                             for st in stats.values()),
+            "map_bytes": store["map_bytes"], "per_phase": per_phase,
+            "totals": totals,
+            "refused": sorted({str(w.message).split(" does not have")[0]
+                               for w in caught
+                               if "deterministic" in str(w.message)})}
+
+
+def h_rank(job, rank, world, tmp, device):
+    """One process of H1 or H2 on ``device`` (cuda:0 for every rank):
+    rank ``rank`` of a gloo group over a FileStore under ``tmp``, or with
+    ``world`` 0 a run without a group; saves its record there."""
+    import datetime
+    # deterministic cuBLAS needs its workspace fixed before the first
+    # CUDA call of the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", E_CUBLAS_WORKSPACE)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    if world:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=H_TIMEOUT_S))
+    try:
+        torch.save(h_run(dev, job, max(world, 1)),
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        if world:
+            dist.destroy_process_group()
+
+
+def h_spawn(job, dev, world):
+    """``job`` in ``world`` processes of a gloo group on ``dev`` (world 0:
+    one process without a group), joined within H_TIMEOUT_S (killed past
+    it); their records in rank order."""
+    import multiprocessing as mp
+    import shutil
+    import torch
+    tmp = os.path.join(HERE, "output", f"chip_smoke_{job}_w{world}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=h_rank, args=(job, r, world, tmp, str(dev)))
+             for r in range(max(world, 1))]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + H_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+    if hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"[{job}] processes ended with "
+                             f"{[p.exitcode for p in procs]} (killed at "
+                             f"{H_TIMEOUT_S} s: {len(hung)})")
+    recs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+    for r, rec in enumerate(recs):
+        if rec["refused"]:
+            raise AssertionError(f"[{job}] process {r}: no deterministic "
+                                 f"version of {rec['refused']}")
+    return recs
+
+
+def ate_cm(rec):
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+    return 100 * evaluate_ate(rec["gt"], rec["est"], align=False)[
+        "absolute_translational_error.rmse"]
+
+
+def check_replicas(job, ranks):
+    """Every rank's cloud, decoders and poses bit-equal to rank 0's."""
+    import numpy as np
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        same = (np.array_equal(r0["packed"], r["packed"])
+                and np.array_equal(r0["est"], r["est"])
+                and all(np.array_equal(v, r["decoders"][k])
+                        for k, v in r0["decoders"].items()))
+        if not same:
+            raise AssertionError(f"[{job}] the ranks' replicas differ")
+    print(f"[{job}] replicas bit-equal on {len(ranks)} ranks: cloud "
+          f"{r0['packed'].shape}, {len(r0['decoders'])} decoder tensors, "
+          f"{len(r0['est'])} poses", flush=True)
+
+
+def phase_h1(dev):
+    """Phase B's configuration at data_parallel 2 (two processes sharing
+    the card) against world size 1 (one process without a group), both
+    under deterministic mode. Returns the ranks' launches."""
+    import numpy as np
+    t0 = time.perf_counter()
+    print(f"[H] cut: H1 mapping.iters_first {ITERS_FIRST} -> "
+          f"{H1_ITERS_FIRST} (frames 0-{H1_FRAMES - 1} as phase B)",
+          flush=True)
+    one = h_spawn("H1", dev, 0)[0]
+    ranks = h_spawn("H1", dev, H_WORLD)
+    name = "ray_topk_packed"
+    for r, rec in enumerate(ranks):
+        print(f"[H1] rank {r}: {name} launches tracking "
+              f"{rec['per_phase']['track'][name]}, mapping "
+              f"{rec['per_phase']['map'][name]}", flush=True)
+        if not (rec["per_phase"]["track"][name] and
+                rec["per_phase"]["map"][name]):
+            raise AssertionError(f"[H1] rank {r}: {name} did not run in "
+                                 f"tracking and mapping")
+    check_replicas("H1", ranks)
+    two = ranks[0]
+    share = {}
+    at = {rec_id: {**rec["map0_at"], H1_ITERS_FIRST: rec["map0"]}
+          for rec_id, rec in (("one", one), ("two", two))}
+    for it in sorted(at["one"]):
+        a0, b0 = at["one"][it], at["two"][it]
+        if len(a0) != len(b0) or not np.array_equal(a0[:, 64:67],
+                                                    b0[:, 64:67]):
+            raise AssertionError("[H1] map 0's points differ from world "
+                                 "size 1's")
+        off = ~np.isclose(b0[:, :64], a0[:, :64], rtol=H_FEAT_TOL,
+                          atol=H_FEAT_TOL)
+        share[it] = off.mean()
+        print(f"[H1] map 0 (GT pose) after iteration {it} of "
+              f"{H1_ITERS_FIRST}, W=2 against W=1: {len(b0)} points, "
+              f"positions equal, feature entries beyond {H_FEAT_TOL}: "
+              f"{int(off.sum())} of {off.size} ({100 * off.mean():.3f}%), "
+              f"largest difference "
+              f"{np.abs(b0[:, :64] - a0[:, :64]).max():.3e}", flush=True)
+    a, b = one["packed"], two["packed"]
+    print(f"[H1] final cloud: points {len(a)} (W=1) / {len(b)} (W=2); "
+          f"ATE no-align {ate_cm(one):.4f} cm (W=1) / {ate_cm(two):.4f} cm "
+          f"(W=2); largest pose difference "
+          f"{np.abs(one['est'] - two['est']).max():.3e}", flush=True)
+    print(f"[H1] frames 1-{H1_FRAMES - 1}: {one['fps']:.4f} frames/s (W=1) "
+          f"/ {two['fps']:.4f} frames/s (W=2: two processes sharing the one "
+          f"card's SMs, not a scaling result); run wall {one['wall']:.2f} / "
+          f"{two['wall']:.2f} s; all-reduced "
+          f"{two['map_bytes'] / two['map_iters']:.0f} bytes a mapping "
+          f"iteration a rank ({two['map_iters']} iterations); phase H1 wall "
+          f"{time.perf_counter() - t0:.2f} s; card {card_line()}",
+          flush=True)
+    # the reduction itself: map 0's first gradient bucket (same cloud,
+    # decoders and draws on both sides) summed over the two half-batch
+    # renders against the whole batch's, relative to its norm; rank 0's
+    # own half before the sum shows how far a missing or wrong sum lands
+    # (the bucket ends in the 3 logged statistics: held apart, as their
+    # counts would swamp the gradients' norm)
+    if one["grad0"].shape != two["grad0"].shape:
+        raise AssertionError("[H1] map 0's first gradient buckets differ "
+                             "in size")
+    rels = {}
+    for part, sl in (("gradients", slice(0, -3)), ("statistics",
+                                                   slice(-3, None))):
+        g1, g2, half = (x[sl] for x in (one["grad0"], two["grad0"],
+                                        two["grad0_local"]))
+        norm = np.linalg.norm(g1)
+        rels[part] = (np.linalg.norm(g2 - g1) / norm,
+                      np.linalg.norm(half - g1) / norm)
+        print(f"[H1] map 0's first all-reduced bucket, {part} ({g1.size} "
+              f"floats), W=2 against W=1: relative error "
+              f"{rels[part][0]:.3e} (bound {H1_GRAD_REL}), largest "
+              f"difference {np.abs(g2 - g1).max():.3e} of max |x| "
+              f"{np.abs(g1).max():.3e}; rank 0's half before the "
+              f"all-reduce: relative error {rels[part][1]:.3e}", flush=True)
+    for part, (rel, rel_half) in rels.items():
+        if not rel < H1_GRAD_REL < rel_half:
+            raise AssertionError(f"[H1] the all-reduced {part} are "
+                                 f"{rel:.3e} from world size 1's (bound "
+                                 f"{H1_GRAD_REL}; one rank's half: "
+                                 f"{rel_half:.3e})")
+    if share[H1_HELD_AT] > H_FEAT_SHARE:
+        raise AssertionError(f"[H1] {100 * share[H1_HELD_AT]:.3f}% of map "
+                             f"0's feature entries beyond {H_FEAT_TOL} of "
+                             f"world size 1's after iteration {H1_HELD_AT}")
+    if not (ate_cm(one) < 2.0 and ate_cm(two) < 2.0):
+        raise AssertionError(f"[H1] ATE no-align {ate_cm(one)} / "
+                             f"{ate_cm(two)} cm >= 2 cm")
+    return [rec["totals"] for rec in ranks]
+
+
+def phase_h2(dev):
+    """Phase C's sensor path at data_parallel 2 over frames 0-4."""
+    t0 = time.perf_counter()
+    print(f"[H] cut: H2 phase C's frames 0-{SENSOR_FRAMES - 1} -> 0-"
+          f"{H2_FRAMES - 1} (BA starts past four keyframes: not reached; "
+          f"the CPU tests cover BA under data parallelism); "
+          f"mapping.color_refine off", flush=True)
+    ranks = h_spawn("H2", dev, H_WORLD)
+    for r, rec in enumerate(ranks):
+        pp = rec["per_phase"]
+        print(f"[H2] rank {r}: ray_topk_fused tracking "
+              f"{pp['track']['ray_topk_fused']}, mapping "
+              f"{pp['map']['ray_topk_fused']}; row_adam {pp['map']['row_adam']}"
+              f" for {rec['map_iters']} mapping iterations", flush=True)
+        if not (pp["track"]["ray_topk_fused"] and pp["map"]["ray_topk_fused"]):
+            raise AssertionError(f"[H2] rank {r}: ray_topk_fused did not run "
+                                 f"in tracking and mapping")
+        if rec["totals"]["row_adam"] != rec["map_iters"]:
+            raise AssertionError(f"[H2] rank {r}: row_adam ran "
+                                 f"{rec['totals']['row_adam']} times for "
+                                 f"{rec['map_iters']} mapping iterations")
+    check_replicas("H2", ranks)
+    two = ranks[0]
+    print(f"[H2] ATE no-align {ate_cm(two):.4f} cm; {len(two['packed'])} "
+          f"points; frames 1-{H2_FRAMES - 1} {two['fps']:.4f} frames/s; "
+          f"all-reduced {two['map_bytes'] / two['map_iters']:.0f} bytes a "
+          f"mapping iteration a rank; phase H2 wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not ate_cm(two) < 2.0:
+        raise AssertionError(f"[H2] ATE no-align {ate_cm(two)} cm >= 2 cm")
+    return [rec["totals"] for rec in ranks]
+
+
+def phase_h3(dev):
+    """In a process of its own under deterministic mode: phase B's
+    configuration over frames 0-2 in an NCCL group of one, bit-equal to
+    the run without a group; the determinism harness's self-check on the
+    card; pretrain_geo on the card, its npz loaded and rendered. Returns
+    the phase's K1 launches. (On a CPU ``dev``, a rehearsal, the group is
+    gloo's.)"""
+    import datetime
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from point_slam_tpu_torch.models import decoders as D
+    from point_slam_tpu_torch.ops import knn
+    from point_slam_tpu_torch.parallel import dist as pdist
+    from point_slam_tpu_torch.slam import PointSLAM
+    from point_slam_tpu_torch.tools import determinism, pretrain_geo
+
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "output", "chip_smoke_H3")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[H] cut: H3 frames 0-{H3_FRAMES - 1} (phase B: 0-6), "
+          f"mapping.iters_first {ITERS_FIRST} -> {H3_ITERS_FIRST}", flush=True)
+    print("[H] cut: pretrain_geo --scenes 1 --frames 4 (the tool's default: "
+          "4 scenes of 40 frames)", flush=True)
+    cfg = bench_config(H3_FRAMES)
+    cfg["mapping"]["iters_first"] = H3_ITERS_FIRST
+    cfg["cuda"]["knn_packed_coords"] = True
+    cfg["verbose"] = False
+    k1 = 0
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for group in (False, True):
+                if group:
+                    if dev.type == "cuda":
+                        torch.cuda.set_device(dev.index or 0)
+                    dist.init_process_group(
+                        "nccl" if dev.type == "cuda" else "gloo",
+                        store=dist.FileStore(
+                            os.path.join(root, "store"), 1),
+                        rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=H_TIMEOUT_S))
+                cfg["data"]["output"] = os.path.join(root, f"group_{group}")
+                sent = pdist.SENT["all_reduce"]
+                try:
+                    summary, slam, _, totals = run_slam(dev, cfg)
+                finally:
+                    if group:
+                        dist.destroy_process_group()
+                if (pdist.SENT["all_reduce"] > sent) != group:
+                    raise AssertionError("[H3] the loops' collectives do "
+                                         "not follow the process group")
+                k1 += totals["ray_topk_packed"]
+                m = slam.mapper
+                runs[group] = (summary["estimate_c2w_list"],
+                               m.cloud.packed[:m.n_points_host].cpu(),
+                               {k: v.cpu() for k, v in
+                                m.decoders.state_dict().items()})
+        finally:
+            torch.use_deterministic_algorithms(False)
+    refused = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+    (ea, pa, da), (eb, pb, db) = runs[False], runs[True]
+    equal = (np.array_equal(ea, eb) and torch.equal(pa, pb)
+             and all(torch.equal(v, db[k]) for k, v in da.items()))
+    print(f"[H3] NCCL group of one vs no group (frames 0-{H3_FRAMES - 1}, "
+          f"deterministic mode: "
+          f"{'every op had a deterministic version' if not refused else 'refused by ' + '; '.join(refused)}"
+          f"): bit-equal {equal}; cloud {tuple(pa.shape)}", flush=True)
+    if refused or not equal:
+        raise AssertionError("[H3] the NCCL world-size-1 run differs from "
+                             "the run without a group")
+
+    knn.LAUNCHES["ray_topk_packed"] = 0
+    t1 = time.perf_counter()
+    if determinism.main(["--device", dev.type, "--self_check"]) != 0:
+        raise AssertionError("[H3] the determinism harness's self-check "
+                             "failed on the card")
+    print(f"[H3] determinism harness on the card: {time.perf_counter() - t1:.2f}"
+          f" s", flush=True)
+    t1 = time.perf_counter()
+    npz = os.path.join(root, "pretrain", "middle_fine.npz")
+    pretrain_geo.main(["--device", dev.type, "--scenes", "1", "--frames", "4",
+                       "--out", npz, "--workdir",
+                       os.path.join(root, "pretrain", "work")])
+    cfg = determinism.config(3)
+    cfg["pretrained_decoders"] = {"middle_fine": npz}
+    cfg["mapping"]["fix_geo_decoder"] = True
+    slam = PointSLAM(cfg, output=os.path.join(root, "pretrained_run"),
+                     device=dev)
+    with np.load(npz) as z:
+        if not np.array_equal(z["embedder._B"],
+                              slam.mapper.decoders.geo.embedder_B.detach()
+                              .cpu().numpy()):
+            raise AssertionError("[H3] the pretrained npz did not load")
+    slam.run()
+    _, color, depth, c2w = slam.dataset[0]
+    dep, _, col = slam.map_vis.render_frame(slam.mapper, c2w, depth, color)
+    finite = bool(torch.isfinite(dep).all() and torch.isfinite(col).all())
+    k1 += knn.LAUNCHES["ray_topk_packed"]
+    print(f"[H3] pretrain_geo on the card and a 3-frame run from its npz: "
+          f"{time.perf_counter() - t1:.2f} s; render of frame 0 finite "
+          f"{finite}, geometry decoder frozen "
+          f"{cfg['mapping']['fix_geo_decoder']}; phase H3 wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not finite:
+        raise AssertionError("[H3] non-finite render from the pretrained npz")
+    print(f"{H3_LAUNCHES_TAG} {k1}", flush=True)
+    return k1
+
+
+def phase_h3_child():
+    """Phase H3 in a process of its own (``--phases H3``), with cuBLAS's
+    fixed workspace set from its start; returns its K1 launches."""
+    import subprocess
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=E_CUBLAS_WORKSPACE)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--phases", "H3"], env=env,
+                            stdout=subprocess.PIPE, text=True)
+    launches = None
+    for line in proc.stdout:
+        print(line, end="", flush=True)
+        if line.startswith(H3_LAUNCHES_TAG):
+            launches = int(line.split()[-1])
+    if proc.wait() != 0 or launches is None:
+        raise AssertionError(f"phase H3 failed (exit code {proc.returncode})")
+    return launches
+
+
+def phase_h(dev):
+    """Data parallelism: H1, H2 and H3. Returns the kernel launches of
+    every rank and process (H1's world-size-1 run is not counted)."""
+    t0 = time.perf_counter()
+    launches = {"ray_topk_packed": 0, "ray_topk_planes": 0,
+                "ray_topk_fused": 0, "row_adam": 0}
+    for totals in phase_h1(dev) + phase_h2(dev):
+        for name in launches:
+            launches[name] += totals[name]
+    launches["ray_topk_packed"] += phase_h3_child()
+    print(f"[H] phase H wall {time.perf_counter() - t0:.2f} s; launches "
+          f"(all ranks) {launches}", flush=True)
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFG",
+    ap.add_argument("--phases", default="ABCDEFGH",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     phases = ap.parse_args().phases.upper()
     sys.path.insert(0, HERE)
-    if phases == "E":
-        # phase E's deterministic mode needs cuBLAS's fixed workspace from
-        # the process's first CUDA call; it slows every matmul (phase B
-        # ran ~27% slower under it), so phase E runs alone in a process
+    if phases in ("E", "H3"):
+        # phase E's (and H3's) deterministic mode needs cuBLAS's fixed
+        # workspace from the process's first CUDA call; it slows every
+        # matmul (phase B ran ~27% slower under it), so these phases run
+        # alone in a process
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", E_CUBLAS_WORKSPACE)
     import torch
     if not torch.cuda.is_available():
@@ -1507,13 +2023,17 @@ def main():
           flush=True)
 
     b_ref = {}                  # phase B's ATE and frames/s, for phase G
-    if phases != "ABCDEFG":
+    if phases == "H3":
+        phase_h3(dev)
+        return
+    if phases != "ABCDEFGH":
         for name, phase in (("A", phase_a),
                             ("B", lambda d: phase_b(d, b_ref)),
                             ("C", phase_c), ("D", phase_d),
                             ("E", phase_e if phases == "E" else phase_e_child),
                             ("F", phase_f),
-                            ("G", lambda d: phase_g(d, b_ref))):
+                            ("G", lambda d: phase_g(d, b_ref)),
+                            ("H", phase_h)):
             if name in phases:
                 phase(dev)
         return
@@ -1524,8 +2044,10 @@ def main():
     launches["ray_topk_packed"] += phase_e_child(dev)
     f_launches = phase_f(dev)
     g_launches = phase_g(dev, b_ref)
+    h_launches = phase_h(dev)
     for name in launches:
-        launches[name] += f_launches.get(name, 0) + g_launches.get(name, 0)
+        launches[name] += (f_launches.get(name, 0) + g_launches.get(name, 0)
+                           + h_launches.get(name, 0))
     print(json.dumps({"kernels": kernel_records(a, launches)
                       + study_records(study)}))
     print(card_line())

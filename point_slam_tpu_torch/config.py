@@ -121,18 +121,3 @@ def load_config(path: str, default_path: Optional[str] = None
 
     update_recursive(cfg, cfg_special)
     return cfg
-
-
-def check_supported(cfg: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for every path this port does not carry
-    yet."""
-    cuda = cfg.get("cuda", {})
-    unsupported = [
-        (int(cuda.get("data_parallel", 1) or 1) > 1,
-         "data parallelism (cuda.data_parallel > 1)"),
-    ]
-    for on, what in unsupported:
-        if on:
-            raise NotImplementedError(
-                f"point_slam_tpu_torch does not implement {what} yet; turn it "
-                f"off in the config or run point_slam_tpu")

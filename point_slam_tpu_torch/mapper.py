@@ -26,6 +26,13 @@ the loop publishes its in-progress cloud at the end of every
 ``cuda.max_iters_per_launch`` iterations below the last and calls the
 hook, where the JAX package splits its loop into launches; the loop
 itself is not split.
+
+Under a process group (``parallel/dist.py``) each iteration's ray batch,
+padded to a multiple of ``cuda.data_parallel``, is split over the ranks:
+each renders its block, and the gradients (the packed leaf's live prefix,
+the decoders, the exposure latents, the BA cameras) and the logged loss
+statistics are summed over the ranks in one all_reduce before the masks
+and Adam. Densification, the window and the frustum mask are replicated.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from point_slam_tpu_torch import pointcloud as pc
 from point_slam_tpu_torch import renderer as R
 from point_slam_tpu_torch.common import camera, image, sampling
 from point_slam_tpu_torch.ops import adam
+from point_slam_tpu_torch.parallel import dist as pdist
 
 
 class MapperStatic(NamedTuple):
@@ -48,7 +56,8 @@ class MapperStatic(NamedTuple):
     fy: float
     cx: float
     cy: float
-    r_max: int            # ray batch size == mapping.pixels
+    r_max: int            # ray batch size: mapping.pixels, padded to a
+                          # multiple of cuda.data_parallel
     f_max: int            # window slots
     w_color_loss: float
     frustum_edge: float
@@ -268,18 +277,19 @@ def _cam_poses(cams: torch.Tensor) -> torch.Tensor:
 
 def _losses(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index, rays,
             c2w_all, stage_color: bool, fill: torch.Tensor,
-            window_exposure: Optional[torch.Tensor] = None):
+            window_exposure: Optional[torch.Tensor] = None, far=None):
     """Masked geometry (+colour) L1 losses of one ray batch. With
     ``ms.encode_exposure`` each ray's colour takes its window slot's
     exposure affine (``window_exposure`` (F, dim)); with ``ms.ba`` the
     neighbour distances are differentiable in the (BA) poses ``c2w_all``.
-    Returns (loss, geo_loss, color_loss, n_mask)."""
+    ``far``: the depth-free rays' far bound (the renderer's, of these rays,
+    by default). Returns (loss, geo_loss, color_loss, n_mask)."""
     rays_o, rays_d = _rays_world(rays, c2w_all)
     depth, _, color, valid_ray = R.render_rays(
         dec, packed, index, rays_o, rays_d, rays["gt_depth"],
         rays["r_query"], rays["ray_ok"], rc, stage_color=stage_color,
         is_tracker=ms.ba, apply_sigmoid_color=not ms.encode_exposure,
-        fill=fill)
+        fill=fill, far=far)
     mask = (rays["gt_depth"] > 0) & valid_ray & rays["ray_ok"]
     mask &= ~torch.isnan(depth)
     geo_loss = torch.sum(torch.where(mask, torch.abs(rays["gt_depth"] - depth),
@@ -337,6 +347,12 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     cloud's points; all rows when None): rows past the cloud have zero
     gradient, moments and mask, which Adam leaves bit for bit as they are.
 
+    The batch (and ``draws``) is the whole padded batch of every rank of
+    the process group (``parallel.dist``): each rank renders its block and
+    the gradients and statistics are summed over the ranks, the packed
+    leaf's over its first ``n_live`` rows (the others get no gradient).
+    Without a group the block is the batch and the sums are local.
+
     ``chunk_hook(it_prev, it_now, packed)``, if given, is called after
     iterations it_now = chunk, 2*chunk, ... below n_iters with the packed
     leaf as it stands (it_prev = it_now - chunk).
@@ -370,14 +386,14 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     lr_rows = [geo_cols * lrs[1] + col_cols * lrs[2]
                for lrs in (lr_geo_stage, lr_color_stage)]
     frustum_f = frustum.float()
+    n_rows = packed.shape[0] if n_live is None else n_live
     if ms.fused_adam:
         # the live prefix of the packed leaf, its moments and its mask:
         # contiguous views that update_rows writes in place; the leaf keeps
         # its storage through the loop
-        live = packed.shape[0] if n_live is None else n_live
         p_live, m_live, v_live, mask_live = (
-            x[:live] for x in (leaves[0].detach(), state["m"][0],
-                               state["v"][0], frustum_f))
+            x[:n_rows] for x in (leaves[0].detach(), state["m"][0],
+                                 state["v"][0], frustum_f))
     stats = torch.zeros(3, device=dev)
     for it in range(n_iters):
         i, j, fill = draws[it] if draws is not None else (None, None, None)
@@ -385,6 +401,8 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                                    pixs_per_image, i, j, generator)
         if fill is None:
             fill = R.draw_fill(generator, dev)
+        far = R.ray_far(rays["gt_depth"], rays["ray_ok"])
+        rays = {k: pdist.shard(v) for k, v in rays.items()}
         stage_geo = it <= geo_iter_bound
         leaves[0].requires_grad_(True)
         for k in (i_exp, i_cam):
@@ -396,11 +414,15 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             index, rays,
             c2w_all if i_cam is None else _cam_poses(leaves[i_cam]),
             stage_color=not stage_geo, fill=fill,
-            window_exposure=None if i_exp is None else leaves[i_exp])
+            window_exposure=None if i_exp is None else leaves[i_exp],
+            far=far)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
+            stats = torch.stack([geo_l.detach(), col_l.detach(),
+                                 n_mask.float()])
+            pdist.all_reduce_flat([grads[0][:n_rows]] + grads[1:] + [stats])
             for k in range(1, 1 + n_col):
                 grads[k] = grads[k] * fix_color
             if i_exp is not None:
@@ -425,7 +447,7 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             params = [p.detach() for p in leaves]
             if ms.fused_adam:
                 p0, s0 = adam.update_rows(
-                    p_live, grads[0][:live], {"m": m_live, "v": v_live},
+                    p_live, grads[0][:n_rows], {"m": m_live, "v": v_live},
                     t_row, lr_row, mask_live)
                 for dst, src in ((p_live, p0), (m_live, s0["m"]),
                                  (v_live, s0["v"])):
@@ -444,8 +466,6 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             for p, q in zip(leaves[1:1 + n_dec], new[1:1 + n_dec]):
                 p.copy_(q)
             leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
-            stats = torch.stack([geo_l.detach(), col_l.detach(),
-                                 n_mask.float()])
         if chunk_hook is not None and (it + 1) % chunk == 0 \
                 and it + 1 < n_iters:
             chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach())
@@ -503,7 +523,8 @@ class Mapper:
         self.window = mp["mapping_window_size"] * (2 if n_img > 4000 else 1)
         self.ms = MapperStatic(
             h=h, w=w, fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"],
-            r_max=mp["pixels"], f_max=2 * self.window + 2,
+            r_max=pdist.padded(mp["pixels"], pdist.data_parallel(cfg)),
+            f_max=2 * self.window + 2,
             w_color_loss=mp["w_color_loss"], frustum_edge=mp["frustum_edge"],
             fix_geo_decoder=mp["fix_geo_decoder"], n_add=pcfg["N_add"],
             near_end_surface_pc=pcfg["near_end_surface"],

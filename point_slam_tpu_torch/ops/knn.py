@@ -395,6 +395,38 @@ def grid_knn_subset(index, q_rays: torch.Tensor, need: torch.Tensor,
     return idx, valid
 
 
+def brute_knn(points: torch.Tensor, n_points, queries: torch.Tensor,
+              k: int = 8, tile: int = 4096):
+    """Exact top-k by squared L2 over the first ``n_points`` rows of
+    ``points`` (CAP, 3): a test oracle in plain PyTorch, not a kernel.
+
+    A scan over tiles of ``tile`` points with a running top-k merge; equal
+    distances go to the lower point index, as ``jax.lax.top_k`` orders
+    them. Returns dists (Q,k) (+inf past the cloud's points), idx (Q,k)
+    int64 (0 where invalid) and valid (Q,k).
+    """
+    q = queries.float()
+    pts = points.float()
+    nq, dev = q.shape[0], q.device
+    n = int(n_points)
+    best_d = torch.full((nq, k), torch.inf, device=dev)
+    best_i = torch.zeros((nq, k), dtype=torch.long, device=dev)
+    for off in range(0, pts.shape[0], tile):
+        diff = q[:, None, :] - pts[None, off:off + tile, :]
+        d2 = torch.sum(diff * diff, dim=-1)                   # (Q, tile)
+        gidx = torch.arange(off, off + d2.shape[1], device=dev)
+        d2 = torch.where(gidx[None, :] < n, d2, torch.inf)
+        merged_d = torch.cat([best_d, d2], dim=1)
+        merged_i = torch.cat([best_i, gidx.expand(nq, -1)], dim=1)
+        # a stable sort keeps the running best (lower indices) ahead of the
+        # tile on ties, and each in index order
+        best_d, pos = torch.sort(merged_d, dim=1, stable=True)
+        best_d, pos = best_d[:, :k], pos[:, :k]
+        best_i = torch.gather(merged_i, 1, pos)
+    valid = torch.isfinite(best_d)
+    return best_d, torch.where(valid, best_i, 0), valid
+
+
 def neighbor_count(dists: torch.Tensor, valid: torch.Tensor,
                    radius) -> torch.Tensor:
     """Number of returned neighbours within a per-query or scalar radius."""

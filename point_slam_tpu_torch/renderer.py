@@ -77,20 +77,27 @@ def make_render_config(cfg: Dict[str, Any], sigmoid_coef: float,
     )
 
 
+def ray_far(gt_depth, ray_valid):
+    """The far bound of depth-free rays' samples, a statistic of the
+    batch: min(5 x mean, 1.2 x max) of its valid positive depths."""
+    depth_pos = ray_valid & (gt_depth > 0)
+    return torch.minimum(5.0 * masked_mean(gt_depth, depth_pos),
+                         1.2 * masked_max(gt_depth, depth_pos))
+
+
 def build_z_vals(rc: RenderConfig, index, rays_o, rays_d, gt_depth,
-                 r_query, ray_valid):
+                 r_query, ray_valid, far=None):
     """Per-ray sample depths and the near-cloud mask: ns samples in
     [0.98 d, 1.02 d] for rays with depth; for depth-free rays, uniform
-    near_end..far (far from the masked batch statistics), or with
-    ``sample_near_pcl`` the segment between the first two coarse samples
-    near the cloud. Returns (z_vals (R, ns), near_pcl_ok (R,), False on
-    depth-free rays that pass no cloud)."""
+    near_end..far (``far``: ``ray_far`` of this batch unless given), or
+    with ``sample_near_pcl`` the segment between the first two coarse
+    samples near the cloud. Returns (z_vals (R, ns), near_pcl_ok (R,),
+    False on depth-free rays that pass no cloud)."""
     ns = rc.n_surface
     r = gt_depth.shape[0]
     dev = gt_depth.device
-    depth_pos = ray_valid & (gt_depth > 0)
-    far = torch.minimum(5.0 * masked_mean(gt_depth, depth_pos),
-                        1.2 * masked_max(gt_depth, depth_pos))
+    if far is None:
+        far = ray_far(gt_depth, ray_valid)
     t = torch.linspace(0.0, 1.0, ns, device=dev)
     z_surface = (rc.near_end_surface * gt_depth[:, None] * (1 - t)[None, :]
                  + rc.far_end_surface * gt_depth[:, None] * t[None, :])
@@ -143,7 +150,8 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
                 is_tracker: bool = False, apply_sigmoid_color: bool = True,
                 fill: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                exposure_feat: Optional[torch.Tensor] = None):
+                exposure_feat: Optional[torch.Tensor] = None,
+                far: Optional[torch.Tensor] = None):
     """Render a ray batch from the (CAP, 72) packed cloud, f32 or its
     bf16 view (``pointcloud.encode_render``).
 
@@ -155,7 +163,8 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
     the kNN indices never carry gradients. With ``rc.encode_exposure`` the
     colour takes the exposure affine of ``exposure_feat`` and the sigmoid,
     or, without a latent, neither (the mapper applies each window slot's
-    own).
+    own). ``far``: the depth-free rays' far bound, ``ray_far`` of these
+    rays unless given (a data-parallel rank passes its whole batch's).
     """
     r = rays_o.shape[0]
     ns = rc.n_surface
@@ -163,7 +172,7 @@ def render_rays(dec: D.Decoders, packed: torch.Tensor, index,
         fill = draw_fill(generator, rays_o.device)
 
     z_vals, near_pcl_ok = build_z_vals(rc, index, rays_o, rays_d, gt_depth,
-                                       r_query, ray_valid)
+                                       r_query, ray_valid, far)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     p = pts.reshape(-1, 3)
     r_query_pts = r_query.repeat_interleave(ns)

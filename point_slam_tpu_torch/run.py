@@ -11,6 +11,14 @@ the checkpoint cadence to N and the keyframe cadence to 10; a run without
 output directory (or of its newest timestamped subdirectory). After the
 run it saves a final checkpoint and, unless --no_eval, runs the end-of-run
 evaluation (tools/evaluate.py). Runs on CUDA unless --device cpu is given.
+
+Data parallelism: ``cuda.data_parallel: N`` in the config and
+
+    torchrun --nproc_per_node N -m point_slam_tpu_torch.run <config.yaml>
+
+(NCCL, rank r on cuda:r; with --device cpu, gloo on the host). Rank 0
+chooses the output directory and alone writes into it; the evaluation runs
+on rank 0 after the other ranks have ended.
 """
 
 from __future__ import annotations
@@ -55,10 +63,9 @@ def main(argv=None):
                         "without CUDA unless --device cpu is given)")
     args = parser.parse_args(argv)
 
+    import torch.distributed
     from point_slam_tpu_torch.config import load_config
-    from point_slam_tpu_torch.slam import PointSLAM
-    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
-    from point_slam_tpu_torch.utils.logger import save_checkpoint
+    from point_slam_tpu_torch.parallel import dist as pdist
 
     cfg = load_config(args.config,
                       os.path.join(HERE, "configs", "point_slam.yaml"))
@@ -69,15 +76,34 @@ def main(argv=None):
     if args.stop:
         cfg["mapping"]["ckpt_freq"] = args.stop
         cfg["mapping"]["keyframe_every"] = 10
+    device = pdist.init_from_env(args.device)
+    try:
+        return _run(args, cfg, device)
+    finally:
+        if pdist.active():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, device):
+    import torch.distributed
+    from point_slam_tpu_torch.parallel import dist as pdist
+    from point_slam_tpu_torch.slam import PointSLAM
+    from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
+
     out = args.output or cfg["data"]["output"]
     if args.stop is None and not args.output and not args.resume:
         out = os.path.join(out, datetime.now().strftime("%Y%m%d_%H%M%S"))
+    if pdist.active():
+        # rank 0's clock names the directory of every rank
+        sent = [out]
+        torch.distributed.broadcast_object_list(sent, src=0)
+        out = sent[0]
     resume_from = None
     if args.resume:
         resume_from, out = find_resume_checkpoint(out)
 
     slam = PointSLAM(cfg, input_folder=args.input_folder, output=out,
-                     device=args.device)
+                     device=device)
     summary = slam.run(stop=args.stop, resume_from=resume_from)
     print(f"finished {summary['n_frames']} frames on {slam.device}, "
           f"{summary['n_points']} neural points, timing {summary['timing']}")
@@ -85,7 +111,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     ckpt_path = os.path.join(out, "ckpts",
                              f"{summary['n_frames'] - 1:05d}.npz")
-    save_checkpoint(ckpt_path, slam, idx=summary["n_frames"] - 1)
+    slam.checkpoint(ckpt_path, idx=summary["n_frames"] - 1)
+    if not slam.writer:
+        return {**summary, "eval": {}, "output": out}
     print(f"checkpoint saved to {ckpt_path} "
           f"({time.perf_counter() - t0:.1f}s)")
     slam.mlog.log({"time_ckpt_final": time.perf_counter() - t0})

@@ -16,6 +16,11 @@ mapping loop instead; after each tracked, unmapped frame into
 Frame 0, mapped before the loop, gets none, as in the JAX package. With
 ``cuda.profile_dir`` the run is traced by ``torch.profiler`` into a Chrome
 trace there.
+
+Under a process group (``parallel/dist.py``; ``cuda.data_parallel`` must
+equal its size) every rank runs this schedule on its own replica and the
+loops split their rays over the ranks; rank 0 alone writes the output
+tree (checkpoints, the metrics sink, panels, point clouds, the trace).
 """
 
 from __future__ import annotations
@@ -27,10 +32,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from point_slam_tpu_torch.config import check_supported
 from point_slam_tpu_torch.datasets import get_dataset
 from point_slam_tpu_torch.mapper import Mapper
 from point_slam_tpu_torch.models import decoders as D
+from point_slam_tpu_torch.parallel import dist as pdist
 from point_slam_tpu_torch.tracker import Tracker
 
 
@@ -75,13 +80,16 @@ class PointSLAM:
             raise RuntimeError(
                 "PointSLAM: CUDA is not available on this host; pass "
                 'device="cpu" to run on the host instead')
-        check_supported(cfg)
+        pdist.check_group(cfg)
+        # rank 0 writes the output tree; the other ranks write nothing
+        self.writer = pdist.is_writer()
         update_cam(cfg)
         if output:
             cfg["data"]["output"] = output
         self.output = cfg["data"]["output"]
-        os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
-        os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
+        if self.writer:
+            os.makedirs(os.path.join(self.output, "ckpts"), exist_ok=True)
+            os.makedirs(os.path.join(self.output, "mesh"), exist_ok=True)
 
         self.dataset = get_dataset(cfg, input_folder)
         self.n_img = len(self.dataset)
@@ -116,10 +124,13 @@ class PointSLAM:
             "other": 0.0}
         # per-frame wall times (seconds, ending in a device sync)
         self.frame_times: Dict[int, Dict[str, float]] = {}
-        from point_slam_tpu_torch.utils.mlog import MetricsLogger
-        self.mlog = MetricsLogger(self.output, cfg,
-                                  name=f"slam_{cfg.get('scene', 'scene')}")
-        self._init_visualizers()
+        from point_slam_tpu_torch.utils.mlog import MetricsLogger, NullSink
+        self.mlog = (MetricsLogger(self.output, cfg,
+                                   name=f"slam_{cfg.get('scene', 'scene')}")
+                     if self.writer else NullSink())
+        self.track_vis = self.map_vis = None
+        if self.writer:
+            self._init_visualizers()
 
     def _init_visualizers(self) -> None:
         """The tracking and mapping visualizers, and with vis_inside their
@@ -172,7 +183,7 @@ class PointSLAM:
         checkpoint's. With ``cuda.profile_dir`` the whole run is traced and
         the trace written there, also when the run fails."""
         profile_dir = self.cfg["cuda"].get("profile_dir")
-        if not profile_dir:
+        if not profile_dir or not self.writer:
             return self._run(stop, resume_from)
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
@@ -192,8 +203,7 @@ class PointSLAM:
              ) -> Dict[str, Any]:
         from point_slam_tpu_torch.common import image as image_ops
         from point_slam_tpu_torch.utils.logger import (load_checkpoint,
-                                                       restore_slam,
-                                                       save_checkpoint)
+                                                       restore_slam)
         from point_slam_tpu_torch.utils.memory import memory_report
         from point_slam_tpu_torch.utils.prefetch import FramePrefetcher
 
@@ -255,9 +265,9 @@ class PointSLAM:
             acc0 = tm["track"] + tm["map"] + tm["log"]
             self.gt_c2w_list[idx] = gt_c2w
             ef = 1 if (lazy and idx <= lazy) else every
-            if self.track_vis.vis_inside:
+            if self.writer and self.track_vis.vis_inside:
                 self._track_vis_frame = {idx: (depth, color)}
-            if self.map_vis.vis_inside:
+            if self.writer and self.map_vis.vis_inside:
                 self._map_vis_frame = {idx: (depth, color)}
 
             t0 = time.perf_counter()
@@ -301,7 +311,7 @@ class PointSLAM:
                 self.mlog.log({"idx_map": idx, **{
                     k: v for k, v in st.items() if k != "cur_c2w"}})
                 # with vis_inside the panels fired inside the loop
-                if not self.map_vis.vis_inside:
+                if self.writer and not self.map_vis.vis_inside:
                     self.mlog.log_image("mapping_vis", self.map_vis.vis(
                         idx, st["n_iters"] - 1, st["n_iters"], self.mapper,
                         self.estimate_c2w_list[idx], depth, color,
@@ -309,15 +319,15 @@ class PointSLAM:
                             "save_rendered_image"],
                         r_query=radius[1]), step=idx)
                 if ckpt_freq and idx % ckpt_freq == 0 and idx != n - 1:
-                    save_checkpoint(os.path.join(
-                        self.output, "ckpts", f"{idx:05d}.npz"), self, idx)
+                    self.checkpoint(os.path.join(
+                        self.output, "ckpts", f"{idx:05d}.npz"), idx)
                 # the point-cloud mirror every 300 frames (the files are
                 # written only at the end)
                 if idx > 0 and idx % 300 == 0 and idx != n - 1:
                     self._dump_point_cloud(log_points_step=idx,
                                            write_files=False)
                 tm["log"] += time.perf_counter() - t0
-            elif res.get("tracked"):
+            elif res.get("tracked") and self.writer:
                 t0 = time.perf_counter()
                 self.mlog.log_image("tracking_vis", self.track_vis.vis(
                     idx, self.tracker.iters - 1, self.tracker.iters,
@@ -349,12 +359,22 @@ class PointSLAM:
             "gt_c2w_list": self.gt_c2w_list[:n],
         }
 
+    def checkpoint(self, path: str, idx: Optional[int] = None) -> None:
+        """Rank 0 writes the checkpoint ``path``; every rank then waits for
+        it at a barrier."""
+        if self.writer:
+            from point_slam_tpu_torch.utils.logger import save_checkpoint
+            save_checkpoint(path, self, idx)
+        pdist.barrier()
+
     def _dump_point_cloud(self, log_points_step: int = -1,
                           write_files: bool = True) -> None:
         """The surface input points with their colours as
         final_point_cloud.{npy,ply} and the neural points' positions as
         npc_cloud.npy (``write_files``), and their mirror to the metrics
-        sink at ``log_points_step`` (>= 0)."""
+        sink at ``log_points_step`` (>= 0); rank 0 only."""
+        if not self.writer:
+            return
         m = self.mapper
         ni = int(m.cloud.n_inputs)
         cloud_pos = m.cloud.input_pos[:ni].cpu().numpy()

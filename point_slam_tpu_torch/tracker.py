@@ -17,6 +17,10 @@ encoded once a frame (the map does not move while the pose does). With a
 ``vis_hook`` (``tracking.vis_inside``) the hook sees the current camera
 after every ``vis_inside_freq``-th iteration below the last; it only
 observes, so the loop's numbers do not change.
+
+Under a process group (``parallel/dist.py``) the pixel batch, padded to a
+multiple of ``cuda.data_parallel``, is split over the ranks: each renders
+its block, and the pose gradient and the loss are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from point_slam_tpu_torch import pointcloud as pc
 from point_slam_tpu_torch import renderer as R
 from point_slam_tpu_torch.common import camera, image, sampling
 from point_slam_tpu_torch.ops import adam
+from point_slam_tpu_torch.parallel import dist as pdist
 
 
 class TrackerStatic(NamedTuple):
@@ -89,7 +94,13 @@ def tracking_loss(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
     """Robust tracking loss of the 7-vector camera ``cam`` at pixels (i, j)
     (``pix_ok``: which picks are valid, all by default) with the (2, 32)
     random-fill vectors ``fill`` and the exposure latent ``exposure_feat``.
-    Returns (loss, geo_loss, color_loss, n_mask)."""
+    Returns (loss, geo_loss, color_loss, n_mask).
+
+    The pixels are the whole batch of every rank of the process group
+    (``parallel.dist``): the depth cut and the far bound are taken on all
+    of them, this rank renders its block, and the robust mask's mean or
+    median is taken over every rank's rays; the returned sums are this
+    rank's part (without a group, the block is the batch)."""
     c2w = camera.pose_matrix_from_tensor(cam)
     dep = sampling.gather_pixels(gt_depth, i, j)
     col = sampling.gather_pixels(gt_color, i, j)
@@ -103,19 +114,22 @@ def tracking_loss(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
     med = image.masked_median(dep, valid)
     mx = image.masked_max(dep, valid)
     valid &= dep <= torch.minimum(10.0 * med, 1.2 * mx)
+    far = R.ray_far(dep, valid)
+    rays_o, rays_d, dep, col, rq, valid = (
+        pdist.shard(x) for x in (rays_o, rays_d, dep, col, rq, valid))
 
     depth, uncertainty, color, _ = R.render_rays(
         dec, packed, index, rays_o, rays_d, dep, rq, valid, rc,
         stage_color=True, is_tracker=True, fill=fill,
-        exposure_feat=exposure_feat)
+        exposure_feat=exposure_feat, far=far)
     uncertainty = uncertainty.detach()
     nan_ok = ~(torch.isnan(depth) | torch.isnan(uncertainty))
     tmp = torch.abs(dep - depth) / torch.sqrt(uncertainty + 1e-10)
     if ts.handle_dynamic:
-        thresh_ok = tmp < 10.0 * image.masked_mean(tmp, valid & nan_ok)
+        thresh_ok = tmp < 10.0 * pdist.masked_mean(tmp, valid & nan_ok)
     else:
         err = torch.abs(dep - depth)
-        thresh_ok = err < 10.0 * image.masked_median(err, valid & nan_ok)
+        thresh_ok = err < 10.0 * pdist.masked_median(err, valid & nan_ok)
     mask = thresh_ok & (dep > 0) & nan_ok & valid
     geo_loss = torch.sum(torch.where(mask, torch.clamp(tmp, 0.0, 1e3), 0.0))
     color_loss = torch.sum(torch.where(mask[:, None], torch.abs(col - color),
@@ -139,6 +153,10 @@ def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
     given, is called after iterations it = hook_every, 2*hook_every, ...
     below n_iters with the current (7,) camera. Returns (best_cam (7,),
     final_cam (7,), first_loss, best_loss) as device tensors.
+
+    Under a process group each rank's pose gradient and loss are summed
+    over the ranks (in one all_reduce) before the Adam step and the
+    best-loss choice, so every rank keeps the same cameras.
     """
     dev = cam_init.device
     if ts.bf16_features:
@@ -166,6 +184,8 @@ def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
                              r_query_map, cam, i, j, fill, ok,
                              exposure_feat)[0]
         g_q, g_t = torch.autograd.grad(loss, [quad, trans])
+        loss = loss.detach()
+        pdist.all_reduce_flat([g_q, g_t, loss])
         with torch.no_grad():
             cam_vec = cam.detach()
             (new_q, new_t), state = adam.update(
@@ -195,15 +215,17 @@ class Tracker:
         self.device = torch.device(device)
         cam = cfg["cam"]
         tr = cfg["tracking"]
+        # the rays pad up to a multiple of the data-parallel ranks
+        pix = pdist.padded(tr["pixels"], pdist.data_parallel(cfg))
         self.ts = TrackerStatic(
             h=cam["H"], w=cam["W"], fx=cam["fx"], fy=cam["fy"],
-            cx=cam["cx"], cy=cam["cy"], pixels=tr["pixels"],
+            cx=cam["cx"], cy=cam["cy"], pixels=pix,
             ignore_edge_w=tr["ignore_edge_W"], ignore_edge_h=tr["ignore_edge_H"],
             handle_dynamic=tr["handle_dynamic"], depth_limit=tr["depth_limit"],
             use_color=tr["use_color_in_tracking"],
             w_color_loss=tr["w_color_loss"], separate_lr=tr["separate_LR"],
             sample_with_color_grad=bool(tr["sample_with_color_grad"]),
-            grad_top=min(15 * tr["pixels"], cam["H"] * cam["W"]),
+            grad_top=min(15 * pix, cam["H"] * cam["W"]),
             bf16_features=R.resolve_auto(
                 cfg["cuda"].get("bf16_features", False), self.device))
         self.rc = R.make_render_config(

@@ -23,15 +23,16 @@ import torch.nn.functional as F
 MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 WINDOW = 11
 
-# AlexNet-LPIPS weight file (converted offline by the JAX package's
-# tools/convert_lpips.py); the metric runs only when one is present
+# AlexNet-LPIPS weight file (converted offline by tools/convert_lpips.py);
+# the metric runs only when one is present
 LPIPS_NPZ_ENV = "POINT_SLAM_LPIPS_NPZ"
 _LPIPS_DEFAULT = "weights/lpips_alex.npz"
 
 # the reason eval outputs give when the metric cannot run
 LPIPS_UNAVAILABLE = ("unavailable: no AlexNet weights in this image — "
-                     "convert them offline with tools/convert_lpips.py and "
-                     "point POINT_SLAM_LPIPS_NPZ at the npz")
+                     "convert them offline with python -m "
+                     "point_slam_tpu_torch.tools.convert_lpips and point "
+                     "POINT_SLAM_LPIPS_NPZ at the npz")
 
 
 def _tensor(x, device=None) -> torch.Tensor:

@@ -67,3 +67,22 @@ class MetricsLogger:
         if self._wandb is not None:
             self._wandb.finish()
             self._wandb = None
+
+
+class NullSink:
+    """MetricsLogger's interface for a process that writes no files (a
+    data-parallel rank other than 0): every record is dropped."""
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        pass
+
+    def log_image(self, name: str, path: Optional[str],
+                  step: Optional[int] = None) -> None:
+        pass
+
+    def log_points(self, name: str, positions, colors=None,
+                   step: Optional[int] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -448,3 +448,77 @@ def test_mlp_precision_default_runs_the_blocks_in_tf32_on_cuda():
     for a, b in zip(out["default"], out[None]):
         assert not torch.equal(a, b)
         assert ((a - b).abs().max() / b.abs().max()).item() < 1e-2
+
+
+@pytest.mark.cuda
+def test_data_parallel_world_size_1_under_nccl_on_cuda(tmp_path):
+    """An NCCL group of one: the helpers reduce and gather CUDA tensors as
+    the identity, and mapping tests/test_parallel.py's tiny config over
+    three frames (GT poses) takes the collectives and tracks the run
+    without a group: same points and positions, features within 2e-3 in
+    all but 1% of the entries (the CUDA scatter-adds sum in a varying
+    order, which Adam turns into learning-rate steps on noise-level
+    gradients; see tests/test_torch_parallel.py)."""
+    import datetime
+    import torch.distributed as dist
+    import torch_dist as TD
+    from point_slam_tpu_torch.common import image
+    from point_slam_tpu_torch.datasets import get_dataset
+    from point_slam_tpu_torch.mapper import Mapper
+    from point_slam_tpu_torch.models import decoders as D
+    from point_slam_tpu_torch.parallel import dist as pdist
+    dev = cuda_or_skip()
+
+    def mapped():
+        cfg = TD.tiny_cfg(1)
+        ds = get_dataset(cfg)
+        m = Mapper(cfg, D.init_decoders(cfg, 0, dev), len(ds),
+                   np.random.default_rng(0), dev)
+        sent = pdist.SENT["all_reduce"]
+        for i in range(3):
+            _, color, depth, c2w = ds[i]
+            m.map_frame(i, color, depth, c2w, c2w)
+        return (pdist.SENT["all_reduce"] > sent,
+                m.cloud.packed[:m.n_points_host].cpu().numpy())
+
+    torch.cuda.set_device(0)
+    plain = mapped()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        x = torch.randn(1000, device=dev)
+        mask = x > 0
+        y = x.clone()
+        pdist.all_reduce_flat([y])
+        assert torch.equal(y, x)
+        assert torch.equal(pdist.all_gather_cat(x), x)
+        assert torch.equal(pdist.masked_median(x, mask),
+                           image.masked_median(x, mask))
+        assert torch.equal(pdist.masked_mean(x, mask),
+                           image.masked_mean(x, mask))
+        grouped = mapped()
+    finally:
+        dist.destroy_process_group()
+    assert (plain[0], grouped[0]) == (False, True)
+    a, b = plain[1], grouped[1]
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(a[:, 64:67], b[:, 64:67])
+    off = ~np.isclose(b[:, :64], a[:, :64], rtol=2e-3, atol=2e-3)
+    assert off.mean() <= 0.01, off.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pts,cap", [(300, 512), (3, 64), (20000, 1 << 15)])
+def test_brute_knn_on_cuda_equals_the_cpu(n_pts, cap):
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(n_pts)
+    pts = np.full((cap, 3), 1e6, np.float32)
+    pts[:n_pts] = rng.uniform(-2, 2, (n_pts, 3))
+    q = torch.from_numpy(rng.uniform(-2, 2, (256, 3)).astype(np.float32))
+    p = torch.from_numpy(pts)
+    want = tk.brute_knn(p, n_pts, q, k=8, tile=1024)
+    got = tk.brute_knn(p.to(dev), n_pts, q.to(dev), k=8, tile=1024)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=0)

@@ -94,7 +94,12 @@ def test_image_metrics_against_jax(evals):
     assert tres["depth_l1_render"] <= 2 * jres["depth_l1_render"] + 0.01
     assert tres["avg_psnr"] >= jres["avg_psnr"] / 2 - 1.0
     assert 0 < tres["avg_ms_ssim"] <= 1.0
-    assert tres["avg_lpips"] == jres["avg_lpips"]      # no weights here
+    # no weights here: each package gives its reason, the port's naming
+    # its own converter
+    from point_slam_tpu.utils.metrics import LPIPS_UNAVAILABLE as j_reason
+    from point_slam_tpu_torch.utils.metrics import LPIPS_UNAVAILABLE
+    assert jres["avg_lpips"] == j_reason
+    assert tres["avg_lpips"] == LPIPS_UNAVAILABLE
     assert tres["ate_rmse_no_align"] < 0.10
 
 

@@ -95,4 +95,8 @@ def test_lpips_without_weights_is_none(tmp_path, monkeypatch):
     assert not TM.lpips_available()
     assert TM.load_lpips_params() is None
     assert TM.lpips(a, b) is None
-    assert TM.LPIPS_UNAVAILABLE == JM.LPIPS_UNAVAILABLE
+    # the JAX package's reason, naming the port's own converter
+    assert TM.LPIPS_UNAVAILABLE.split(" — ")[0] == \
+        JM.LPIPS_UNAVAILABLE.split(" — ")[0]
+    assert "point_slam_tpu_torch.tools.convert_lpips" in TM.LPIPS_UNAVAILABLE
+    assert TM.LPIPS_NPZ_ENV in TM.LPIPS_UNAVAILABLE

@@ -1,6 +1,6 @@
 """The port as a package: it runs without JAX, reads the same config tree
-as point_slam_tpu, raises on the paths it does not carry yet, and runs on
-CUDA unless asked for the CPU."""
+as point_slam_tpu, refuses none of its paths, and runs on CUDA unless
+asked for the CPU."""
 
 import glob
 import os
@@ -26,9 +26,15 @@ sys.modules["jax"] = None               # any import of jax now fails
 sys.modules["point_slam_tpu"] = None
 import torch
 import point_slam_tpu_torch
-for m in pkgutil.walk_packages(point_slam_tpu_torch.__path__,
-                               "point_slam_tpu_torch."):
-    importlib.import_module(m.name)
+names = {m.name for m in pkgutil.walk_packages(point_slam_tpu_torch.__path__,
+                                               "point_slam_tpu_torch.")}
+assert {"point_slam_tpu_torch.parallel.dist",
+        "point_slam_tpu_torch.tools.determinism",
+        "point_slam_tpu_torch.tools.convert_pretrained",
+        "point_slam_tpu_torch.tools.convert_lpips",
+        "point_slam_tpu_torch.tools.pretrain_geo"} <= names
+for name in sorted(names):
+    importlib.import_module(name)
 from point_slam_tpu_torch import pointcloud as pc, renderer as R
 from point_slam_tpu_torch.models import decoders as D
 cfg = {"model": {"c_dim": 32}}
@@ -179,20 +185,6 @@ def test_cuda_defaults_hold_only_the_slice_knobs():
         "max_iters_per_launch", "prefetch_depth", "profile_dir"}
 
 
-OUT_OF_SLICE = [
-    ({"cuda": {"data_parallel": 2}}, "data parallelism"),
-]
-
-
-@pytest.mark.parametrize("override,what", OUT_OF_SLICE,
-                         ids=[w for _, w in OUT_OF_SLICE])
-def test_out_of_slice_paths_raise(override, what):
-    _, cfg = tiny_cfgs(4)
-    tconfig.update_recursive(cfg, override)
-    with pytest.raises(NotImplementedError, match=what):
-        tconfig.check_supported(cfg)
-
-
 SENSOR_SLICE = [
     ({"mapping": {"BA": True}}, "bundle adjustment"),
     ({"model": {"encode_exposure": True}}, "exposure"),
@@ -209,37 +201,82 @@ SENSOR_SLICE = [
 ]
 
 
+def _build(cfg, tmp_path):
+    from point_slam_tpu_torch.slam import PointSLAM
+    slam = PointSLAM(cfg, output=str(tmp_path / "out"), device="cpu")
+    slam.mlog.close()
+    return slam
+
+
 @pytest.mark.parametrize("override,what", SENSOR_SLICE,
                          ids=[w for _, w in SENSOR_SLICE])
-def test_sensor_slice_paths_pass_the_check(override, what):
+def test_sensor_slice_paths_build(override, what, tmp_path):
     """The paths the port carries (those of the sensor-shaped slice, the
     metrics sink's wandb mirror, the host keyframe ring, the in-loop
-    visualisation and the render-path keys) are no longer refused."""
+    visualisation and the render-path keys): PointSLAM builds on the CPU
+    with each key set, and keeps it as given."""
     _, cfg = tiny_cfgs(4)
     tconfig.update_recursive(cfg, override)
-    tconfig.check_supported(cfg)
+    slam = _build(cfg, tmp_path)
+    for sec, v in override.items():
+        if isinstance(v, dict):
+            for k, x in v.items():
+                assert slam.cfg[sec][k] == x, (sec, k)
+        else:
+            assert slam.cfg[sec] == v, sec
 
 
-def test_the_slice_config_passes_the_check():
-    _, cfg = tiny_cfgs(4)
-    tconfig.check_supported(cfg)
+def test_the_slice_config_builds(tmp_path):
     # room_sensor.yaml's path with the two kernels on
     cfg = tconfig.load_config(
         os.path.join(CONFIGS, "Synthetic", "room_sensor.yaml"),
         os.path.join(CONFIGS, "point_slam.yaml"))
     cfg["cuda"].update({"knn_packed_coords": "fused", "fused_adam": True})
-    tconfig.check_supported(cfg)
+    cfg["synthetic"]["n_frames"] = 2
+    cfg["verbose"] = False
+    slam = _build(cfg, tmp_path)
+    assert slam.mapper.ms.fused_adam and slam.mapper.ms.encode_exposure
+
+
+def test_tpu_data_parallel_reaches_cuda(tmp_path):
+    """A yaml's ``tpu: {data_parallel: 2}`` is the port's
+    ``cuda.data_parallel``, which then needs a process group of 2."""
+    from point_slam_tpu_torch.parallel import dist as pdist
+    yaml = tmp_path / "dp.yaml"
+    yaml.write_text(
+        f"inherit_from: {os.path.join(CONFIGS, 'Synthetic', 'room.yaml')}\n"
+        "tpu: {data_parallel: 2}\n")
+    cfg = tconfig.load_config(str(yaml), os.path.join(CONFIGS,
+                                                      "point_slam.yaml"))
+    assert cfg["cuda"]["data_parallel"] == 2
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        pdist.check_group(cfg)
+
+
+@pytest.mark.parametrize("dp", [None, 1, 2, 3])
+def test_check_group_without_a_group(dp):
+    """Without a process group ``cuda.data_parallel`` may only be 1 (or
+    unset); a larger value is refused with the torchrun command."""
+    from point_slam_tpu_torch.parallel import dist as pdist
+    cfg = {"cuda": {"data_parallel": dp}}
+    if (dp or 1) == 1:
+        pdist.check_group(cfg)
+    else:
+        with pytest.raises(RuntimeError,
+                           match=f"torchrun --nproc_per_node {dp}"):
+            pdist.check_group(cfg)
 
 
 def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
                                                             tmp_path):
     """Without CUDA, PointSLAM(cfg), the CLI without --device, the
-    mesh-from-checkpoint CLI without --device, the end-of-run meshing
-    (fuse_renders) and TSDFVolume raise (no silent fall-back to the host);
-    device="cpu" is the way to ask."""
+    mesh-from-checkpoint CLI without --device, the determinism harness and
+    pretrain_geo without --device, the end-of-run meshing (fuse_renders)
+    and TSDFVolume raise (no silent fall-back to the host); device="cpu"
+    is the way to ask."""
     from point_slam_tpu_torch import run
     from point_slam_tpu_torch.slam import PointSLAM
-    from point_slam_tpu_torch.tools import mesher
+    from point_slam_tpu_torch.tools import determinism, mesher, pretrain_geo
     from point_slam_tpu_torch.tools.tsdf import TSDFVolume
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = tiny_cfgs(4)
@@ -256,6 +293,12 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
                   str(tmp_path / "cli")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mesher.main([str(yaml), "--output", str(tmp_path / "cli")])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        determinism.main(["--self_check"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pretrain_geo.main(["--out", str(tmp_path / "geo.npz"), "--workdir",
+                           str(tmp_path / "work")])
+    assert not (tmp_path / "geo.npz").exists()
     with pytest.raises(RuntimeError, match='device="cpu"'):
         TSDFVolume((0, 0, 0), (4, 4, 4))
     with pytest.raises(RuntimeError, match='device="cpu"'):
