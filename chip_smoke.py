@@ -131,7 +131,24 @@ non-zero with no result line otherwise. In one pass it:
    --frames 4`` writes an npz under output/, which a 3-frame run loads
    (frozen) and renders finite. Prints each cut as ``[H] cut:`` and the
    phase's wall time; the ranks' launches go into the kernels line;
-10. prints one JSON line of the kernels, the card again, and last the line
+10. phase I: the layer-measurement tools (``point_slam_tpu_torch/
+   profiling``) at bench.py's widths (CAP 2^17, 22,500 points on frame 0's
+   surfaces). I1: the card's matmul, copy and launch rates
+   (hw_calibration) and the gather / backward scatter-add row rates
+   (gather_scatter_micro, scatter_micro). I2: the mapping iteration's
+   ablation ladder (iter_breakdown) on the packed cell table (K1, K4 in
+   rung 9), and its
+   kNN rung on the f32 planes (K2) and the fused table (K3), each kernel
+   held EQUAL to its plain version on its ladder's inputs; the render
+   sub-ladder and the sampling stages. I3: trace_ops (a traced stretch of
+   the SLAM loop) and trace_map_iter (30 mapping iterations), both with
+   device activity. I4: the roofline's analytic table on the card's peaks
+   beside I3's measured buckets; a bucket below its bound fails. I5:
+   step_cost, iter_cost, tracker_cost, map_frame_overhead,
+   track_frame_overhead and frame_overhead. Prints each depth cut as
+   ``[I] cut:`` and the phase's wall time; its launches go into the
+   kernels line;
+11. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -227,11 +244,23 @@ H1_SNAPSHOTS = (1, 10, 100)
 H1_GRAD_REL = 1e-3          # map 0's first all-reduced gradient vs W=1's
 H3_LAUNCHES_TAG = "[H3] ray_topk_packed launches in phase H3:"
 
-# The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
-# and f32 flop/s outside the tensor cores. A kernel's bound is the larger of
-# its bytes over the first and its operations over the second.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+# phase I: the layer-measurement tools at bench.py's widths (CAP 2^17 and
+# 22,500 points: the TPU ladder's bench-matched IB_CAP / IB_NPTS), on a
+# cloud on frame 0's surfaces (the TPU scripts' sine sheet lies outside the
+# room's view: no sample finds a neighbour on it). The depth cuts below are
+# printed as "[I] cut:".
+I_CAP = 1 << 17
+I_POINTS = 22_500
+I_ITERS = 10                # timed iterations a ladder measurement (30)
+I_REPEATS = 3
+I_TRACE_ITERS = 30          # trace_map_iter's mapping iterations
+I_TRACE_OPS = dict(warm=4, traced=2, iters_first=60, iters=60)
+I_STEP_BUDGETS = (4, 24)    # step_cost's (4, 54)
+I_ITER_BUDGETS = (20, 20, 80)   # iter_cost's (60, 60, 360)
+I_FIRST = 60                # first-frame iterations of the I5 scripts
+I_TRACK_REPS = 3            # track_frame_overhead's 20
+I_REPS = 5                  # map/frame overhead repetitions (10, 20)
+
 KEY_FLOPS = 8               # a candidate-sample key: 3 sub, 3 mul, 2 add
 ADAM_FLOPS = 15             # one row-Adam element (row_adam.cu)
 
@@ -242,25 +271,10 @@ def card_line() -> str:
 
 
 def bench_config(n_frames: int, scene: str = "room.yaml"):
-    """configs/Synthetic/<scene> with bench.py's overrides."""
-    from point_slam_tpu_torch.config import load_config
-    cfg = load_config(os.path.join(HERE, "configs", "Synthetic", scene),
-                      os.path.join(HERE, "configs", "point_slam.yaml"))
-    cfg["synthetic"].update({"n_frames": n_frames, "angular_step": 0.01})
-    cfg["cam"].update({"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0,
-                       "cx": 599.5, "cy": 339.5})
-    cfg["tracking"].update({"pixels": 1500, "iters": 40,
-                            "ignore_edge_W": 100, "ignore_edge_H": 100})
-    cfg["mapping"].update({
-        "pixels": 5000, "pixels_adding": 6000,
-        "pixels_based_on_color_grad": 1000, "iters": 300,
-        "iters_first": ITERS_FIRST, "geo_iter_first": 400,
-        "mapping_window_size": 12, "keyframe_every": 5, "every_frame": 5,
-        "lazy_start": False, "color_refine": False})
-    cfg["rendering"]["sample_near_pcl"] = False
-    cfg["cuda"].update({"point_capacity_init": 1 << 17,
-                        "grid_table_size": 1 << 16, "grid_max_per_cell": 64,
-                        "knn_probes": 27})
+    """configs/Synthetic/<scene> with bench.py's overrides
+    (profiling/workload.py), verbose, writing under output/chip_smoke."""
+    from point_slam_tpu_torch.profiling.workload import bench_config as make
+    cfg = make(n_frames, scene, ITERS_FIRST)
     cfg["verbose"] = True
     cfg["data"]["output"] = os.path.join(HERE, "output", "chip_smoke")
     return cfg
@@ -288,7 +302,12 @@ def sensor_config():
 
 
 def bound(n_bytes: float, n_flops: float):
-    """(least time in ms, what sets it) on the card's published peaks."""
+    """(least time in ms, what sets it) on the card's published peaks
+    (profiling/roofline.py: HBM bytes/s and f32 flop/s outside the tensor
+    cores, H100 SXM data sheet at 700 W): the larger of the bytes over the
+    first and the operations over the second."""
+    from point_slam_tpu_torch.profiling.roofline import (F32_FLOP_PER_S,
+                                                         HBM_BYTES_PER_S)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1990,10 +2009,169 @@ def phase_h(dev):
     return launches
 
 
+def i_drive(totals, fn, *args, **kw):
+    """One piece of phase I's path: every kernel count set to 0 just
+    before it, read just after and added to ``totals``."""
+    from point_slam_tpu_torch.ops import adam, knn
+    for table in (knn.LAUNCHES, adam.LAUNCHES):
+        for name in table:
+            table[name] = 0
+    out = fn(*args, **kw)
+    for name, v in {**knn.LAUNCHES, **adam.LAUNCHES}.items():
+        totals[name] = totals.get(name, 0) + v
+    return out
+
+
+def i_hold(res):
+    print(f"[I] {res['name']} on its ladder's inputs: equal to plain: "
+          f"{res['equal']} (max abs err {res['max_abs_err']}, tolerance 0)",
+          flush=True)
+    if not res["equal"]:
+        raise AssertionError(f"{res['name']} differs from plain in phase I")
+
+
+def phase_i_ladders(dev, totals):
+    """I2's ladders: the whole ladder on the packed cell table (K1; K4 in
+    rung 9), rung 2 on the f32 planes (K2) and the fused table (K3); each
+    kernel held against its plain version on its ladder's inputs."""
+    import torch
+    from point_slam_tpu_torch.profiling import iter_breakdown as IB
+    from point_slam_tpu_torch.profiling import workload as W
+    out = {}
+    for layout in ("packed", "planes", "fused"):
+        cfg = W.bench_config(4)
+        cfg["cuda"]["point_capacity_init"] = I_CAP
+        b = IB.build(cfg, dev, I_POINTS, layout, "surface")
+        d = IB.draw(b)
+        i_hold(IB.hold_ray_topk(b, d, layout))
+        if layout == "packed":
+            i_hold(IB.hold_row_adam(b, d))
+            stepped = IB.rung_full(b, d)[0]
+            if not bool(torch.isfinite(stepped).all()):
+                raise AssertionError("phase I: rung 7's step is not finite")
+        vs, ins, cs = IB.neighbour_shares(b)
+        print(f"[I] ladder {layout} ({IB.KERNEL_OF[layout]}): valid "
+              f"neighbour slots {vs:.4f}, within the query radius "
+              f"{ins:.4f}, compact rays {cs:.4f}; rung 2 includes the "
+              f"non-compact fallback's host sync (q_rays[need])", flush=True)
+        out[layout] = i_drive(totals, IB.run, b,
+                              None if layout == "packed" else [2], I_ITERS,
+                              I_REPEATS, f"I2 {layout}")
+        del b
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_i(dev):
+    """The layer-measurement tools (point_slam_tpu_torch/profiling) on the
+    card. Returns phase I's kernel launches."""
+    import torch
+    from point_slam_tpu_torch.profiling import (
+        frame_overhead, gather_scatter_micro, hw_calibration, iter_cost,
+        map_frame_overhead, render_breakdown, roofline as RL, sample_stages,
+        scatter_micro, step_cost, trace_map_iter, trace_ops,
+        track_frame_overhead, tracker_cost, workload as W)
+    t0 = time.perf_counter()
+    for cut in (
+            f"the ladders at CAP {I_CAP} and {I_POINTS} points on frame 0's "
+            "surfaces (the TPU script's defaults: CAP 2^19, 300k points on "
+            "the sine sheet)",
+            f"{I_ITERS} timed iterations x {I_REPEATS} repeats a rung "
+            "(the TPU script's chain: 30)",
+            f"trace_ops: warm frames 1-{I_TRACE_OPS['warm']}, traced "
+            f"{I_TRACE_OPS['traced']}, {I_TRACE_OPS['iters']} mapping "
+            "iterations a mapped frame (warm 10, traced 5, 300)",
+            f"step_cost budgets {I_STEP_BUDGETS} (4, 54); iter_cost "
+            f"{I_ITER_BUDGETS} (60, 60, 360); first frames at {I_FIRST} "
+            "iterations (150-300)",
+            f"track_frame_overhead {I_TRACK_REPS} repetitions (20); map and "
+            f"frame overhead {I_REPS} (10, 20)"):
+        print(f"[I] cut: {cut}", flush=True)
+    totals = {}
+
+    # I1: the card's peaks and row rates
+    print("[I1] calibration", flush=True)
+    calib = hw_calibration.calibrate(dev)
+    gather = gather_scatter_micro.run(dev)
+    scatter_micro.run(dev)
+
+    # I2: the ladders, the render sub-ladder, the sampling stages
+    ladders = phase_i_ladders(dev, totals)
+    render_breakdown.run(dev, I_CAP, I_POINTS)
+    sample_stages.run(dev)
+
+    # I3: the op trace of the loop and of 30 mapping iterations
+    path = i_drive(totals, trace_ops.capture,
+                   os.path.join(W.OUTPUT, "trace_ops_torch"), dev,
+                   **I_TRACE_OPS)
+    ops = trace_ops.analyze(path, top=12)
+    if not ops["device"]:
+        raise AssertionError("phase I: trace_ops recorded no device work")
+    cfg = W.bench_config(4)
+    cfg["cuda"]["point_capacity_init"] = I_CAP
+    mit = i_drive(totals, trace_map_iter.run, cfg, dev, I_POINTS, "surface",
+                  I_TRACE_ITERS, 12)
+    if not mit["device"]:
+        raise AssertionError("phase I: trace_map_iter recorded no device "
+                             "activity in three windows")
+
+    # I4: the roofline beside I3's buckets
+    rungs, peak = RL.iteration_model(R=5000, cap=I_CAP, probes=27)
+    rows = RL.table(rungs, peak)
+    RL.print_table(rows, peak)
+    buckets = RL.parse_trace(mit["listing"])
+    checks = RL.check(buckets, rows, I_TRACE_ITERS)
+    RL.print_measured(buckets, checks, I_TRACE_ITERS)
+    W.save_json("roofline_torch.json", {"model": rows, "checks": checks})
+    if not all(c["ok"] for c in checks):
+        raise AssertionError("phase I: a measured bucket is below its "
+                             "roofline bound")
+
+    # I5: steady state and fixed costs
+    cfg = W.bench_config(4, iters_first=I_FIRST)
+    cfg["cuda"]["point_capacity_init"] = I_CAP
+    mapper, color, depth, c2w = i_drive(totals, step_cost.setup, cfg, dev,
+                                        I_POINTS, "surface")
+    costs = {"map": i_drive(totals, step_cost.map_costs, cfg, mapper, color,
+                            depth, c2w, dev, I_STEP_BUDGETS, 1),
+             "track": i_drive(totals, step_cost.track_cost, cfg, mapper,
+                              color, depth, c2w, dev, 1)}
+    del mapper
+    costs["iter"] = i_drive(totals, iter_cost.run, dev, I_ITER_BUDGETS,
+                            I_CAP)
+    costs["tracker"] = i_drive(totals, tracker_cost.run, dev,
+                               (4, 4, 44, 44, 4, 44), I_CAP, I_FIRST)
+    cfg = W.bench_config(4, iters_first=I_FIRST)
+    cfg["cuda"]["point_capacity_init"] = I_CAP
+    i_drive(totals, map_frame_overhead.run, cfg, dev, I_POINTS, "surface",
+            I_REPS)
+    cfg = W.bench_config(6, iters_first=I_FIRST)
+    cfg["cuda"]["point_capacity_init"] = I_CAP
+    i_drive(totals, track_frame_overhead.run, cfg, dev, I_TRACK_REPS)
+    frame_overhead.run(W.bench_config(2), dev, I_REPS)
+    for name in ("map", "track", "iter", "tracker"):
+        if not 0 < costs[name]["per_iter_ms"] < 1e4:
+            raise AssertionError(f"phase I: {name} per-iteration cost "
+                                 f"{costs[name]['per_iter_ms']} ms")
+    for name in ("ray_topk_packed", "ray_topk_planes", "ray_topk_fused",
+                 "row_adam"):
+        if not totals.get(name):
+            raise AssertionError(f"phase I: {name} was not launched on its "
+                                 "path")
+    torch.cuda.synchronize()
+    rate = gather["gather f32 (N,K,72)"]["rows_per_s_device"]
+    print(f"[I] phase I wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{totals}; f32 matmul "
+          f"{calib['matmul f32 (TF32 off)']['rate']:.2f} TFLOP/s, gather "
+          f"{(rate or 0) / 1e6:.1f}M rows/s; ladder rungs "
+          f"{len(ladders['packed'])}", flush=True)
+    return totals
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGH",
+    ap.add_argument("--phases", default="ABCDEFGHI",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     phases = ap.parse_args().phases.upper()
@@ -2026,14 +2204,14 @@ def main():
     if phases == "H3":
         phase_h3(dev)
         return
-    if phases != "ABCDEFGH":
+    if phases != "ABCDEFGHI":
         for name, phase in (("A", phase_a),
                             ("B", lambda d: phase_b(d, b_ref)),
                             ("C", phase_c), ("D", phase_d),
                             ("E", phase_e if phases == "E" else phase_e_child),
                             ("F", phase_f),
                             ("G", lambda d: phase_g(d, b_ref)),
-                            ("H", phase_h)):
+                            ("H", phase_h), ("I", phase_i)):
             if name in phases:
                 phase(dev)
         return
@@ -2045,9 +2223,11 @@ def main():
     f_launches = phase_f(dev)
     g_launches = phase_g(dev, b_ref)
     h_launches = phase_h(dev)
+    i_totals = phase_i(dev)
     for name in launches:
         launches[name] += (f_launches.get(name, 0) + g_launches.get(name, 0)
-                           + h_launches.get(name, 0))
+                           + h_launches.get(name, 0)
+                           + i_totals.get(name, 0))
     print(json.dumps({"kernels": kernel_records(a, launches)
                       + study_records(study)}))
     print(card_line())

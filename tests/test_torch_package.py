@@ -271,9 +271,9 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
                                                             tmp_path):
     """Without CUDA, PointSLAM(cfg), the CLI without --device, the
     mesh-from-checkpoint CLI without --device, the determinism harness and
-    pretrain_geo without --device, the end-of-run meshing (fuse_renders)
-    and TSDFVolume raise (no silent fall-back to the host); device="cpu"
-    is the way to ask."""
+    pretrain_geo without --device, the end-of-run meshing (fuse_renders),
+    TSDFVolume and every profiling tool without --device raise (no silent
+    fall-back to the host); device="cpu" is the way to ask."""
     from point_slam_tpu_torch import run
     from point_slam_tpu_torch.slam import PointSLAM
     from point_slam_tpu_torch.tools import determinism, mesher, pretrain_geo
@@ -312,6 +312,25 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
     assert PointSLAM(cfg, device="cpu").device.type == "cpu"
     assert TSDFVolume((0, 0, 0), (4, 4, 4), device="cpu").tsdf.device.type \
         == "cpu"
+    # the layer-measurement tools: cuda by default, raising without it
+    import importlib
+    for name in PROFILING_TOOLS:
+        module = importlib.import_module(
+            f"point_slam_tpu_torch.profiling.{name}")
+        argv = ["capture", str(tmp_path / "tr")] if name == "trace_ops" \
+            else []
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.main(argv)
+    assert not (tmp_path / "tr").exists()
+
+
+PROFILING_TOOLS = (
+    "roofline", "hw_calibration", "gather_scatter_micro", "scatter_micro",
+    "latency_floor", "trace_ops", "trace_map_iter", "iter_breakdown",
+    "render_breakdown", "sample_stages", "step_cost", "iter_cost",
+    "tracker_cost", "map_frame_overhead", "track_frame_overhead",
+    "frame_overhead", "feat_adam_micro", "upload_micro", "knn8_micro",
+    "knn_ray", "knn_study")
 
 
 def test_auto_knobs_resolve_by_device():

@@ -88,7 +88,8 @@ class Scene:
     pretrained decoders, and the index in the requested layout, each also
     carried into the port."""
 
-    def __init__(self, packed_coords=False, n_frames=4, seed=0):
+    def __init__(self, packed_coords=False, n_frames=4, seed=0,
+                 cap=1 << 13):
         from point_slam_tpu import pointcloud as jpc
         from point_slam_tpu.common import camera as jcam
         from point_slam_tpu.datasets import get_dataset
@@ -111,7 +112,7 @@ class Scene:
                                  23.5)
         dep = jnp.asarray(depth)[j.astype(int), i.astype(int)]
         col = jnp.asarray(color)[j.astype(int), i.astype(int)]
-        state = jpc.init_cloud(1 << 13, 32, 3)
+        state = jpc.init_cloud(cap, 32, 3)
         index = jpc.build_index(state, self.cell, 1 << 14, 64)
         state, _ = jpc.add_points(state, index, o, d, dep, col,
                                   jnp.ones(o.shape[0], bool),
