@@ -148,7 +148,26 @@ non-zero with no result line otherwise. In one pass it:
    track_frame_overhead and frame_overhead. Prints each depth cut as
    ``[I] cut:`` and the phase's wall time; its launches go into the
    kernels line;
-11. prints one JSON line of the kernels, the card again, and last the line
+11. phase J: the quality gate, the soak chain and the end-to-end A/Bs
+   (``point_slam_tpu_torch/profiling``). J0 holds K1 EQUAL to its plain
+   version at P = 36 (probes_ab's other probe count; its block and shared
+   memory depend on P) on phase A's tables at R = 5000 and 1500. J1-J3
+   run as four concurrent processes sharing the card under a temporary
+   output root (in the whole smoke they start after phase D and run
+   beside phases E-H, which measure nothing the kernels line carries):
+   J1 the furnished gate (quality_gate) over 100 frames with its
+   iterations cut, a tagged probe: every metric finite, ATE without
+   alignment under 2 cm; J2 room_scannet_scale.yaml over 60 frames with a
+   checkpoint every 20 under soak_runner, which kills the run once after
+   its first checkpoint and resumes it (the host keyframe ring in both
+   runs), then soak_eval at a stride and soak_summary: a finite summary,
+   ATE without alignment under 2 cm; J3 bf16_ab's two variants and
+   geo_decoder_ab's three at 4 frames: finite rows. Last, alone on the
+   card, mlp_precision_ab and probes_ab (K1 EQUAL at P = 36 and 27 on the
+   step's samples) and geo_fwd_split at their defaults (CAP 2^19, 300k
+   points on frame 0's surfaces). Prints each cut as ``[J] cut:``; the
+   children's and the A/Bs' launches go into the kernels line;
+12. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -261,6 +280,26 @@ I_FIRST = 60                # first-frame iterations of the I5 scripts
 I_TRACK_REPS = 3            # track_frame_overhead's 20
 I_REPS = 5                  # map/frame overhead repetitions (10, 20)
 
+# phase J: the quality gate, the soak chain, the A/Bs
+J_PROBES = 36               # probes_ab's other probe count (A runs 27)
+J_GATE_FRAMES = 100
+J_GATE_CUT = {"mapping": {"iters": 100, "iters_first": 500,
+                          "geo_iter_first": 150}}
+J_METRICS = ("ate_cm", "ate_noalign_cm", "fscore", "precision", "recall",
+             "psnr", "ms_ssim", "depth_l1_cm")
+J_JAX_GATE = (0.407, 87.56, 38.18)   # output/quality_gate.json (TPU run)
+J_SOAK_FRAMES = 60
+J_SOAK_CUT = {"mapping": {"ckpt_freq": 20, "iters": 30, "iters_first": 100,
+                          "geo_iter_first": 40}}
+J_SOAK_STRIDE = 4
+J_AB_FRAMES = 4
+J_AB_CUT = {"mapping": {"iters": 50, "iters_first": 100,
+                        "geo_iter_first": 40}}
+J_GEO_FREEZE = 3
+J_CHILDREN = ("J1", "J2", "J3BF16", "J3GEO")
+J_TIMEOUT_S = 900           # the children's limit, from their start
+J_LAUNCHES_TAG = "[J] kernel launches in"
+
 KEY_FLOPS = 8               # a candidate-sample key: 3 sub, 3 mul, 2 add
 ADAM_FLOPS = 15             # one row-Adam element (row_adam.cu)
 
@@ -354,17 +393,15 @@ def topk_bound(name, probes, c, ns, k):
     return bound(n_bytes, r * ns * p * c * KEY_FLOPS), rows
 
 
-def phase_a(dev):
-    """Kernel against plain on the card at the main path's shapes."""
+def a_tables(dev):
+    """Phase A's inputs: the synthetic room's frame 0 densified at
+    bench.py's settings, and its cell tables in the three layouts. Returns
+    (cfg, mapper, {kernel name: table}, depth, c2w)."""
     import numpy as np
-    import torch
-    from point_slam_tpu_torch import pointcloud as pc
-    from point_slam_tpu_torch import renderer as R
-    from point_slam_tpu_torch.common import camera, sampling
     from point_slam_tpu_torch.mapper import Mapper
     from point_slam_tpu_torch.models import decoders as D
     from point_slam_tpu_torch.datasets import get_dataset
-    from point_slam_tpu_torch.ops import adam, knn
+    from point_slam_tpu_torch.ops import knn
 
     cfg = bench_config(7)
     cfg["mapping"]["iters_first"] = 0        # densify frame 0 only
@@ -373,73 +410,96 @@ def phase_a(dev):
     mapper = Mapper(cfg, D.init_decoders(cfg, SEED, dev), len(ds),
                     np.random.default_rng(SEED), dev)
     mapper.map_frame(0, color, depth, c2w, c2w)
-    cloud, n = mapper.cloud, mapper.n_points_host
+    cloud = mapper.cloud
     args = (cloud.pos, cloud.n_points, mapper.cell_size, mapper.table_size,
             mapper.max_per_cell)
     indexes = {"ray_topk_packed": mapper.index,
                "ray_topk_planes": knn.build_grid_index(*args),
                "ray_topk_fused": knn.build_fused_grid_index(*args)}
+    return cfg, mapper, indexes, depth, c2w
+
+
+def hold_ray_topk(tag, name, index, r, p_ray, cfg, rc, g, depth_d, c2w_d):
+    """One ray top-k launch on R rays of the frame (samples placed as the
+    renderer places them, P probe slots) against its plain version: keys
+    and ids EQUAL (ids as bit patterns); prints its times, bound and
+    persistent grid. Returns the record of the kernels line."""
+    import torch
+    from point_slam_tpu_torch import renderer as R
+    from point_slam_tpu_torch.common import camera, sampling
+    from point_slam_tpu_torch.ops import knn
+
+    dev = depth_d.device
+    k, ns = rc.nn_num, rc.n_surface
+    lanes = 2 if name == "ray_topk_fused" else 1
+    i, j = sampling.sample_pixels_uniform(0, cfg["cam"]["H"], 0,
+                                          cfg["cam"]["W"], r, g, dev)
+    rays_o, rays_d = camera.rays_from_uv(
+        i, j, c2w_d, cfg["cam"]["fx"], cfg["cam"]["fy"],
+        cfg["cam"]["cx"], cfg["cam"]["cy"])
+    dep = sampling.gather_pixels(depth_d, i, j)
+    z, _ = R.build_z_vals(rc, index, rays_o, rays_d, dep,
+                          torch.full_like(dep, 0.16),
+                          torch.ones_like(dep, dtype=bool))
+    q = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    probes, compact = knn._box_probes(q, index.cell_size,
+                                      index.table_size, p_ray)
+    qk = (q if name == "ray_topk_planes"
+          else knn._query_lattice(q, index.cell_size)).contiguous()
+    planes = knn.index_planes(index)
+    c = index.max_per_cell
+    lane_mask = knn._lane_mask(p_ray * c * lanes)
+    run = lambda: knn.ray_topk(probes, planes, qk, k, lane_mask)
+    plain = lambda: knn.ray_topk_reference(probes, planes, qk, k,
+                                           lane_mask)
+    keys, ids = run()
+    rkeys, rids = plain()
+    torch.cuda.synchronize()
+    # ids as int32 bit patterns (K3's may be NaN bits as floats)
+    ib, rib = ids.view(torch.int32), rids.view(torch.int32)
+    err = max((keys.long() - rkeys.long()).abs().max().item(),
+              (ib.long() - rib.long()).abs().max().item())
+    equal = torch.equal(keys, rkeys) and torch.equal(ib, rib)
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    (b_ms, b_by), rows = topk_bound(name, probes, c, ns, k)
+    dev_ms = device_ms(run, b_ms)
+    print(f"[{tag}] {name} R={r} ns={ns} k={k} P={p_ray}: keys/ids equal "
+          f"to plain: {equal} (max abs err {err}, tolerance 0); "
+          f"valid slots {(keys < 0x7F800000).float().mean().item():.4f}"
+          f", compact rays {compact.float().mean().item():.4f}; "
+          f"kernel {ms:.4f} ms (device {shown(dev_ms)}), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {rows} "
+          f"distinct rows)", flush=True)
+    if not equal:
+        raise AssertionError(f"{name} at R={r}, P={p_ray} differs from "
+                             "plain")
+    per_sm, smem = knn.ray_topk_occupancy(planes, p_ray, ns)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[{tag}] {name}: {per_sm} blocks an SM, grid "
+          f"{min(r, per_sm * n_sm)}, {smem} bytes of shared memory "
+          f"a block", flush=True)
+    return {"max_abs_err": float(err), "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_a(dev):
+    """Kernel against plain on the card at the main path's shapes."""
+    import torch
+
+    cfg, mapper, indexes, depth, c2w = a_tables(dev)
+    cloud, n = mapper.cloud, mapper.n_points_host
     print(f"[A] frame-0 cloud: {n} points, table {mapper.table_size} x "
           f"{mapper.max_per_cell}", flush=True)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     depth_d = torch.as_tensor(depth, device=dev)
     c2w_d = torch.as_tensor(c2w, device=dev)
-    rc = mapper.rc
-    p_ray, k, ns = rc.knn_probes, rc.nn_num, rc.n_surface
     results = {}
     for name, index in indexes.items():
-        res = results[name] = {}
-        lanes = 2 if name == "ray_topk_fused" else 1
-        for r in RAY_BATCHES:
-            i, j = sampling.sample_pixels_uniform(0, cfg["cam"]["H"], 0,
-                                                  cfg["cam"]["W"], r, g, dev)
-            rays_o, rays_d = camera.rays_from_uv(
-                i, j, c2w_d, cfg["cam"]["fx"], cfg["cam"]["fy"],
-                cfg["cam"]["cx"], cfg["cam"]["cy"])
-            dep = sampling.gather_pixels(depth_d, i, j)
-            z, _ = R.build_z_vals(rc, index, rays_o, rays_d, dep,
-                                  torch.full_like(dep, 0.16),
-                                  torch.ones_like(dep, dtype=bool))
-            q = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-            probes, compact = knn._box_probes(q, index.cell_size,
-                                              index.table_size, p_ray)
-            qk = (q if name == "ray_topk_planes"
-                  else knn._query_lattice(q, index.cell_size)).contiguous()
-            planes = knn.index_planes(index)
-            c = index.max_per_cell
-            lane_mask = knn._lane_mask(p_ray * c * lanes)
-            run = lambda: knn.ray_topk(probes, planes, qk, k, lane_mask)
-            plain = lambda: knn.ray_topk_reference(probes, planes, qk, k,
-                                                   lane_mask)
-            keys, ids = run()
-            rkeys, rids = plain()
-            torch.cuda.synchronize()
-            # ids as int32 bit patterns (K3's may be NaN bits as floats)
-            ib, rib = ids.view(torch.int32), rids.view(torch.int32)
-            err = max((keys.long() - rkeys.long()).abs().max().item(),
-                      (ib.long() - rib.long()).abs().max().item())
-            equal = torch.equal(keys, rkeys) and torch.equal(ib, rib)
-            ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-            (b_ms, b_by), rows = topk_bound(name, probes, c, ns, k)
-            dev_ms = device_ms(run, b_ms)
-            print(f"[A] {name} R={r} ns={ns} k={k} P={p_ray}: keys/ids equal "
-                  f"to plain: {equal} (max abs err {err}, tolerance 0); "
-                  f"valid slots {(keys < 0x7F800000).float().mean().item():.4f}"
-                  f", compact rays {compact.float().mean().item():.4f}; "
-                  f"kernel {ms:.4f} ms (device {shown(dev_ms)}), plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {rows} "
-                  f"distinct rows)", flush=True)
-            if not equal:
-                raise AssertionError(f"{name} at R={r} differs from plain")
-            per_sm, smem = knn.ray_topk_occupancy(planes, p_ray, ns)
-            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-            print(f"[A] {name}: {per_sm} blocks an SM, grid "
-                  f"{min(r, per_sm * n_sm)}, {smem} bytes of shared memory "
-                  f"a block", flush=True)
-            res[r] = {"max_abs_err": float(err), "ms": ms,
-                      "device_ms": dev_ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by}
+        results[name] = {
+            r: hold_ray_topk("A", name, index, r, mapper.rc.knn_probes, cfg,
+                             mapper.rc, g, depth_d, c2w_d)
+            for r in RAY_BATCHES}
     results["row_adam"] = phase_a_row_adam(dev, cfg, cloud, n, depth_d,
                                            c2w_d)
     return results
@@ -2168,13 +2228,324 @@ def phase_i(dev):
     return totals
 
 
+# ---------------------------------------------------------------- phase J
+
+
+def j_cut(cfg, cut):
+    """Apply a depth cut {section: {key: value}} to a config."""
+    for sec, kv in cut.items():
+        cfg[sec].update(kv)
+
+
+def j_counted(fn, *args, **kw):
+    """fn(...) with every kernel count set to 0 just before it; returns
+    (its result, the counts just after)."""
+    from point_slam_tpu_torch.ops import adam, knn
+    for table in (knn.LAUNCHES, adam.LAUNCHES):
+        for name in table:
+            table[name] = 0
+    out = fn(*args, **kw)
+    return out, {**knn.LAUNCHES, **adam.LAUNCHES}
+
+
+def j_launched(tag, counts):
+    """The child's launch line, which the parent reads."""
+    print(f"{J_LAUNCHES_TAG} {tag}: {json.dumps(counts)}", flush=True)
+    if not counts.get("ray_topk_packed"):
+        raise AssertionError(f"{tag}: ray_topk_packed was not launched")
+
+
+def j_finite_row(tag, row, keys):
+    import math
+    bad = [k for k in keys if not isinstance(row.get(k), (int, float))
+           or not math.isfinite(row[k])]
+    if bad or "failed" in row:
+        raise AssertionError(f"{tag}: missing or non-finite {bad}; failed "
+                             f"{row.get('failed')}")
+
+
+def phase_j0(dev):
+    """K1 at P = 36 (probes_ab's other probe count) on phase A's tables,
+    at R = 5000 and 1500, EQUAL to its plain version."""
+    import torch
+    cfg, mapper, indexes, depth, c2w = a_tables(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    name = "ray_topk_packed"
+    return {r: hold_ray_topk("J0", name, indexes[name], r, J_PROBES, cfg,
+                             mapper.rc, g, torch.as_tensor(depth, device=dev),
+                             torch.as_tensor(c2w, device=dev))
+            for r in RAY_BATCHES}
+
+
+def phase_j1(dev, root):
+    """The furnished gate at 100 frames (depth cut), a tagged probe under
+    ``root``: every metric finite, ATE without alignment under 2 cm."""
+    from point_slam_tpu_torch.profiling import quality_gate as QG
+    (row, _), counts = j_counted(
+        QG.run_gate, J_GATE_FRAMES, "smoke", device="cuda", root=root,
+        overrides={}, cfg_hook=lambda cfg: j_cut(cfg, J_GATE_CUT))
+    j_finite_row("J1", row, J_METRICS)
+    print(f"[J1] gate ({row['n_frames']} frames, commit {row['commit']}, "
+          f"{row['device']}): ATE {row['ate_cm']} cm (no-align "
+          f"{row['ate_noalign_cm']}), F {row['fscore']} (P {row['precision']}"
+          f", R {row['recall']}), PSNR {row['psnr']}, MS-SSIM "
+          f"{row['ms_ssim']}, depth L1 {row['depth_l1_cm']} cm, "
+          f"{row['n_points']} points, run wall {row['wall_s']} s, timing "
+          f"{row['timing_s']}; the JAX package's standing TPU gate (quality "
+          f"only): ATE no-align {J_JAX_GATE[0]} cm, F {J_JAX_GATE[1]}, PSNR "
+          f"{J_JAX_GATE[2]}", flush=True)
+    if not row["ate_noalign_cm"] < 2.0:
+        raise AssertionError(f"J1: ATE no-align {row['ate_noalign_cm']} cm "
+                             ">= 2 cm")
+    j_launched("J1", counts)
+
+
+def phase_j2(dev, root):
+    """room_scannet_scale.yaml cut to J_SOAK_FRAMES frames under
+    soak_runner, killed once after its first checkpoint and resumed; then
+    soak_eval at a stride and soak_summary."""
+    import ast
+    from point_slam_tpu_torch.profiling import soak_eval as SE
+    from point_slam_tpu_torch.profiling import soak_runner as SR
+    from point_slam_tpu_torch.profiling import soak_summary as SS
+    cfg_path = os.path.join(root, "soak.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(f"inherit_from: {os.path.join(HERE, 'configs', 'Synthetic', 'room_scannet_scale.yaml')}\n"
+                f"synthetic: {{n_frames: {J_SOAK_FRAMES}}}\n"
+                f"mapping: {json.dumps(J_SOAK_CUT['mapping'])}\n")
+    out, logs = os.path.join(root, "soak", "run"), os.path.join(root, "soak")
+    cmd = [sys.executable, "-m", "point_slam_tpu_torch.run", cfg_path,
+           "--output", out, "--device", "cuda"]
+    runner = SR.Runner(cmd, out, logs, max_attempts=3, stall_s=300,
+                       poll_s=1.0, pause_s=1.0,
+                       healthy=lambda: SR.health("cuda", 180),
+                       kill_after_checkpoint=True)
+    if runner.run() != 0:
+        raise AssertionError("J2: the soak did not finish")
+    log = open(os.path.join(logs, "soak.log")).read()
+    runs = [open(os.path.join(logs, f"run_{k}.log")).read()
+            for k in (1, 2)]
+    if "injected stall" not in log or "attempt 2 (resume='--resume')" \
+            not in log or "[resume] from" not in runs[1]:
+        raise AssertionError("J2: no kill and resume in the soak log")
+    if not all("[init] keyframe images on the host ring" in r for r in runs):
+        raise AssertionError("J2: the runs did not use the host ring")
+    line = [ln for ln in runs[1].splitlines()
+            if ln.startswith("kernel launches: ")][-1]
+    run_counts = ast.literal_eval(line[len("kernel launches: "):])
+    _, eval_counts = j_counted(SE.evaluate, out, J_SOAK_STRIDE, cfg_path,
+                               "cuda")
+    summary = SS.summarize(out, os.path.join(logs, "soak.log"), cfg_path)
+    j_finite_row("J2", {**summary, **summary["recon_eval"],
+                        **summary["render_metrics"]},
+                 ("ate_rmse_cm", "ate_rmse_noalign_cm", "recon_F_score",
+                  "avg_psnr", "depth_l1_render"))
+    print(f"[J2] soak ({summary['n_frames']} frames, checkpoints "
+          f"{summary['checkpoints']}, keyframes {summary['n_keyframes']} on "
+          f"the {summary['keyframe_ring']} ring, {summary['n_points']} "
+          f"points, CAP {summary['point_capacity_final']}): ATE "
+          f"{summary['ate_rmse_cm']} cm (no-align "
+          f"{summary['ate_rmse_noalign_cm']}, max "
+          f"{summary['ate_max_noalign_cm']}); kill/resume "
+          f"{summary['kill_resume_log']}; active wall "
+          f"{summary['wall_active_s']} s (gaps "
+          f"{summary['wall_excluded_gaps_s']}); eval at stride "
+          f"{J_SOAK_STRIDE}: PSNR {summary['render_metrics']['avg_psnr']:.3f}"
+          f", F {summary['recon_eval']['recon_F_score']:.3f} over "
+          f"{summary['recon_eval']['n_fused_frames']} fused frames; resumed "
+          f"run launches {run_counts}", flush=True)
+    if summary["keyframe_ring"] != "host":
+        raise AssertionError("J2: the soak config did not keep the host ring")
+    if not summary["ate_rmse_noalign_cm"] < 2.0:
+        raise AssertionError(f"J2: ATE no-align "
+                             f"{summary['ate_rmse_noalign_cm']} cm >= 2 cm")
+    j_launched("J2", {k: run_counts.get(k, 0) + eval_counts[k]
+                      for k in eval_counts})
+
+
+def phase_j3_ab(dev, root, which):
+    """bf16_ab's two variants or geo_decoder_ab's three, at J_AB_FRAMES
+    frames (depth cut), one after the other."""
+    from point_slam_tpu_torch.profiling import bf16_ab as AB
+    from point_slam_tpu_torch.profiling import geo_decoder_ab as GEO
+    cut = lambda cfg: j_cut(cfg, J_AB_CUT)
+    if which == "bf16":
+        rows, counts = j_counted(AB.run, J_AB_FRAMES, dev, None, root, cut)
+    else:
+        rows, counts = j_counted(GEO.run, J_AB_FRAMES, J_GEO_FREEZE, dev,
+                                 None, root, cut)
+    for row in rows:
+        j_finite_row(f"J3 {row['variant']}", row,
+                     ("ate_cm", "fscore", "psnr", "ms_ssim", "depth_l1_cm"))
+        print(f"[J3] {which} {row['variant']}: {json.dumps(row)}",
+              flush=True)
+    if len(rows) != (2 if which == "bf16" else 3):
+        raise AssertionError(f"J3 {which}: rows {[r['variant'] for r in rows]}")
+    j_launched(f"J3 {which}", counts)
+
+
+def j_child(name, root):
+    """Phase J's sub-phase ``name`` in a process of its own (its output in
+    root/<name>.log), started now; returns the Popen."""
+    import subprocess
+    with open(os.path.join(root, f"{name}.log"), "w") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phases", name,
+             "--j-root", root], stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS="2"),
+            start_new_session=True)
+
+
+class JChildren:
+    """J1, J2 and J3's pipelines as concurrent processes sharing the card
+    (each host-bound; their times are not measurements), under a temporary
+    output root: started on entry, joined by ``join`` (their summed
+    launches), and every process, its children and the root gone on
+    exit."""
+
+    def __enter__(self):
+        import tempfile
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_j_")
+        self.t0 = time.perf_counter()
+        self.procs = {name: j_child(name, self.root) for name in J_CHILDREN}
+        print(f"[J] started {list(self.procs)} in {self.root}", flush=True)
+        return self
+
+    def join(self):
+        import subprocess
+        launches, failed = {}, []
+        for name, proc in self.procs.items():
+            left = max(J_TIMEOUT_S - (time.perf_counter() - self.t0), 1.0)
+            try:
+                rc = proc.wait(left)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            with open(os.path.join(self.root, f"{name}.log")) as f:
+                lines = f.read().splitlines()
+            for ln in lines:
+                if ln.startswith("[J"):
+                    print(ln, flush=True)
+            tagged = [ln for ln in lines if ln.startswith(J_LAUNCHES_TAG)]
+            if rc != 0 or not tagged:
+                failed.append(name)
+                print(f"[J] {name} failed ({rc}); its last lines:\n"
+                      + "\n".join(lines[-40:]), flush=True)
+                continue
+            for k, v in json.loads(tagged[-1].split(": ", 1)[1]).items():
+                launches[k] = launches.get(k, 0) + v
+            print(f"[J] {name} done by {time.perf_counter() - self.t0:.1f} s "
+                  "after the start", flush=True)
+        if failed:
+            raise AssertionError(f"phase J: {failed} failed")
+        return launches
+
+    def __exit__(self, *exc):
+        import shutil
+        import signal
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(self.root, ignore_errors=True)
+        return False
+
+
+def phase_j3_steps(dev):
+    """mlp_precision_ab, probes_ab and geo_fwd_split at their defaults,
+    alone on the card; returns their launches."""
+    import torch
+    from point_slam_tpu_torch.profiling import geo_fwd_split as GF
+    from point_slam_tpu_torch.profiling import mlp_precision_ab as MP
+    from point_slam_tpu_torch.profiling import probes_ab as PA
+    from point_slam_tpu_torch.profiling import workload as W
+    totals = {}
+    # the scripts' defaults: CAP 2^19, 300k points on frame 0's surfaces,
+    # the packed cell table; one ladder serves all three
+    b = MP.build(dev, 1 << 19, 300_000, "surface")
+    mp = i_drive(totals, MP.run, b)
+    pa = i_drive(totals, PA.run, b)
+    gf = i_drive(totals, GF.run, b)
+    del b
+    torch.cuda.empty_cache()
+    st = gf["stages"]
+    print(f"[J3] mlp_precision_ab: loss rel delta "
+          f"{mp['loss']['rel_delta']:.3e}; step wall highest "
+          f"{W.spread_str(mp['highest']['wall'])}, default "
+          f"{W.spread_str(mp['default']['wall'])}; device highest "
+          f"{W.shown(mp['highest']['busy_ms'])}, default "
+          f"{W.shown(mp['default']['busy_ms'])}", flush=True)
+    print("[J3] probes_ab: " + "; ".join(
+        f"{tag} wall {W.spread_str(r['wall'])}, device "
+        f"{W.shown(r['busy_ms'])}" for tag, r in pa["grid"].items()),
+        flush=True)
+    print(f"[J3] geo_fwd_split: non-compact rays {gf['non_compact']} of "
+          f"{gf['rays']}; fallback wall "
+          f"{gf.get('diff_wall', {}).get('fallback', float('nan')):.3f} ms, "
+          f"device {gf.get('diff_busy_ms', {}).get('fallback', float('nan')):.4f}"
+          f" ms; " + "; ".join(
+              f"{n} {W.spread_str(r['wall'])} ({W.shown(r['busy_ms'])})"
+              for n, r in st.items()), flush=True)
+    if not mp["loss"]["rel_delta"] > 0:
+        raise AssertionError("J3: TF32 left the loss unchanged on the card")
+    if not all(h["equal"] for h in pa["hold"].values()):
+        raise AssertionError("J3: K1 differs from plain in probes_ab")
+    return totals
+
+
+def phase_j(dev, children=None):
+    """The quality gate, the soak chain and the end-to-end A/Bs. Returns
+    phase J's kernel launches (J0's comparisons not counted).
+    ``children``: the launches of J1-J3's pipelines when they already ran
+    (beside phases E-H in the whole smoke); run here otherwise."""
+    t0 = time.perf_counter()
+    for cut in (
+            f"J1: the furnished gate at {J_GATE_FRAMES} frames with "
+            f"{J_GATE_CUT} (room_furnished.yaml: mapping iters 300, "
+            "iters_first 1500, geo_iter_first 400)",
+            f"J2: room_scannet_scale.yaml at {J_SOAK_FRAMES} frames (5000), "
+            f"mapping {J_SOAK_CUT['mapping']} (ckpt_freq 500, iters 150, "
+            f"iters_first 800, geo_iter_first 200); soak_eval at stride "
+            f"{J_SOAK_STRIDE}",
+            f"J3: bf16_ab and geo_decoder_ab at {J_AB_FRAMES} frames (100, "
+            f"150) with {J_AB_CUT}, freeze after {J_GEO_FREEZE} (20)",
+            f"J1-J3's pipelines run as {len(J_CHILDREN)} concurrent "
+            "processes sharing the card (in the whole smoke beside phases "
+            "E-H): their times, and E-H's, are not measurements"):
+        print(f"[J] cut: {cut}", flush=True)
+    phase_j0(dev)
+    if children is None:
+        with JChildren() as jc:
+            children = jc.join()
+    launches = dict(children)
+    for k, v in phase_j3_steps(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[J] phase J wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def phase_j_child(name, root):
+    """One of J_CHILDREN, in this process."""
+    import torch
+    dev = torch.device("cuda")
+    if name == "J1":
+        phase_j1(dev, root)
+    elif name == "J2":
+        phase_j2(dev, root)
+    else:
+        phase_j3_ab(dev, root, {"J3BF16": "bf16", "J3GEO": "geo"}[name])
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHI",
+    ap.add_argument("--phases", default="ABCDEFGHIJ",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
-    phases = ap.parse_args().phases.upper()
+    ap.add_argument("--j-root", default=None,
+                    help="(phase J's children) the temporary output root")
+    args = ap.parse_args()
+    phases = args.phases.upper()
     sys.path.insert(0, HERE)
     if phases in ("E", "H3"):
         # phase E's (and H3's) deterministic mode needs cuBLAS's fixed
@@ -2204,14 +2575,18 @@ def main():
     if phases == "H3":
         phase_h3(dev)
         return
-    if phases != "ABCDEFGHI":
+    if phases in J_CHILDREN:
+        phase_j_child(phases, args.j_root)
+        return
+    if phases != "ABCDEFGHIJ":
         for name, phase in (("A", phase_a),
                             ("B", lambda d: phase_b(d, b_ref)),
                             ("C", phase_c), ("D", phase_d),
                             ("E", phase_e if phases == "E" else phase_e_child),
                             ("F", phase_f),
                             ("G", lambda d: phase_g(d, b_ref)),
-                            ("H", phase_h), ("I", phase_i)):
+                            ("H", phase_h), ("I", phase_i),
+                            ("J", phase_j)):
             if name in phases:
                 phase(dev)
         return
@@ -2219,15 +2594,20 @@ def main():
     launches = phase_b(dev, b_ref)
     launches.update(phase_c(dev))
     study = phase_d(dev)
-    launches["ray_topk_packed"] += phase_e_child(dev)
-    f_launches = phase_f(dev)
-    g_launches = phase_g(dev, b_ref)
-    h_launches = phase_h(dev)
+    # phase J's pipelines (host-bound processes) run beside phases E-H,
+    # which measure nothing that the kernels line carries
+    with JChildren() as jc:
+        launches["ray_topk_packed"] += phase_e_child(dev)
+        f_launches = phase_f(dev)
+        g_launches = phase_g(dev, b_ref)
+        h_launches = phase_h(dev)
+        j_children = jc.join()
     i_totals = phase_i(dev)
+    j_totals = phase_j(dev, j_children)
     for name in launches:
         launches[name] += (f_launches.get(name, 0) + g_launches.get(name, 0)
                            + h_launches.get(name, 0)
-                           + i_totals.get(name, 0))
+                           + i_totals.get(name, 0) + j_totals.get(name, 0))
     print(json.dumps({"kernels": kernel_records(a, launches)
                       + study_records(study)}))
     print(card_line())

@@ -74,6 +74,18 @@ class MapperStatic(NamedTuple):
     bf16_features: bool = False  # render from the bf16 view of the leaf
 
 
+def host_ring(cfg, n_img: int, keyframe_every: int) -> bool:
+    """Whether a run keeps its keyframe images in host memory:
+    ``cuda.keyframe_host_ring``, or with 'auto' when the expected keyframe
+    count exceeds ``cuda.keyframe_device_budget``."""
+    cu = cfg["cuda"]
+    mode = cu["keyframe_host_ring"]
+    if mode != "auto":
+        return bool(mode)
+    expected = n_img // max(keyframe_every, 1) + 4
+    return expected > int(cu["keyframe_device_budget"])
+
+
 class KeyframeStore:
     """Keyframe database: poses and exposure latents on the host, images as
     (H,W,5) u8 wire frames in one of two places:
@@ -95,8 +107,7 @@ class KeyframeStore:
         cu = cfg["cuda"]
         expected = n_img // max(keyframe_every, 1) + 4
         budget = int(cu["keyframe_device_budget"])
-        mode = cu["keyframe_host_ring"]
-        self.host_mode = expected > budget if mode == "auto" else bool(mode)
+        self.host_mode = host_ring(cfg, n_img, keyframe_every)
         self.h, self.w = h, w
         self.device = torch.device(device)
         self.est_c2w: List[np.ndarray] = []

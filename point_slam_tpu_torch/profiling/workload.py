@@ -300,8 +300,8 @@ def spread_str(s: Dict[str, Optional[float]]) -> str:
 def save_json(name: str, obj) -> str:
     """Write ``obj`` to output/<name> (the directory .gitignore lists)."""
     import json
-    os.makedirs(OUTPUT, exist_ok=True)
     path = os.path.join(OUTPUT, name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f, indent=1, default=float)
     return path

@@ -107,6 +107,8 @@ def _run(args, cfg, device):
     summary = slam.run(stop=args.stop, resume_from=resume_from)
     print(f"finished {summary['n_frames']} frames on {slam.device}, "
           f"{summary['n_points']} neural points, timing {summary['timing']}")
+    from point_slam_tpu_torch.ops import adam, knn
+    print(f"kernel launches: {dict(**knn.LAUNCHES, **adam.LAUNCHES)}")
 
     t0 = time.perf_counter()
     ckpt_path = os.path.join(out, "ckpts",

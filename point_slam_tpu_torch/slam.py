@@ -109,6 +109,10 @@ class PointSLAM:
 
         rng = np.random.default_rng(cfg["setup_seed"])
         self.mapper = Mapper(cfg, decoders, self.n_img, rng, self.device)
+        if self.verbose:
+            print(f"[init] keyframe images on the "
+                  f"{'host' if self.mapper.store.host_mode else 'device'} "
+                  "ring", flush=True)
         self.tracker = Tracker(cfg, self.device)
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)

@@ -317,11 +317,17 @@ def test_entry_points_run_on_cuda_unless_asked_for_the_cpu(monkeypatch,
     for name in PROFILING_TOOLS:
         module = importlib.import_module(
             f"point_slam_tpu_torch.profiling.{name}")
-        argv = ["capture", str(tmp_path / "tr")] if name == "trace_ops" \
-            else []
+        argv = {"trace_ops": ["capture", str(tmp_path / "tr")],
+                "recon_validate": [str(yaml), str(tmp_path / "cli")],
+                "soak_eval": [str(tmp_path / "cli")],
+                "soak_summary": [str(tmp_path / "cli")],
+                "soak_runner": ["--output", str(tmp_path / "soak"),
+                                "--log-dir", str(tmp_path / "soak")],
+                }.get(name, [])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             module.main(argv)
     assert not (tmp_path / "tr").exists()
+    assert not (tmp_path / "soak").exists()
 
 
 PROFILING_TOOLS = (
@@ -330,7 +336,10 @@ PROFILING_TOOLS = (
     "render_breakdown", "sample_stages", "step_cost", "iter_cost",
     "tracker_cost", "map_frame_overhead", "track_frame_overhead",
     "frame_overhead", "feat_adam_micro", "upload_micro", "knn8_micro",
-    "knn_ray", "knn_study")
+    "knn_ray", "knn_study", "quality_gate", "track_quality",
+    "recon_validate", "soak_eval", "soak_summary", "soak_runner", "bf16_ab",
+    "geo_decoder_ab", "mlp_precision_ab", "probes_ab", "geo_fwd_split",
+    "interp_inspect")
 
 
 def test_auto_knobs_resolve_by_device():
