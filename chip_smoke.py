@@ -56,8 +56,8 @@ non-zero with no result line otherwise. In one pass it:
 6. phase E, in a process of its own (deterministic cuBLAS needs a fixed
    workspace, which would slow the other phases' matmuls): what a run
    leaves behind, on configs/Synthetic/room.yaml at phase B's widths
-   over frames 0-10 with a checkpoint every 5 frames. A
-   continuous run (it must write ckpts/00005.npz, metrics.jsonl,
+   over frames 0-10 (the first frame at E_ITERS_FIRST iterations) with a
+   checkpoint every 5 frames. A continuous run (it must write ckpts/00005.npz, metrics.jsonl,
    final_point_cloud.{npy,ply} and npc_cloud.npy), then a fresh PointSLAM
    resumed from ckpts/00005.npz over frames 6-10, both under
    torch.use_deterministic_algorithms: ATE without alignment under 2 cm
@@ -81,8 +81,9 @@ non-zero with no result line otherwise. In one pass it:
    16-bit depth PNGs with 5% depth holes; rgb.txt, depth.txt and
    groundtruth.txt with jittered, offset stamps and one extra entry that
    the 32 fps pick drops) and runs the port's PointSLAM on that config
-   from disk at tum.yaml's widths (crop_edge 8: 464x624) on the host
-   keyframe ring: 9 frames read, K1 in tracking and mapping, ATE without
+   from disk at tum.yaml's widths (crop_edge 8: 464x624; tracking and
+   the first frame's mapping at F2_TRACK_ITERS and F2_ITERS_FIRST
+   iterations) on the host keyframe ring: 9 frames read, K1 in tracking and mapping, ATE without
    alignment under 2 cm; prints the reader's ms a frame, the io and wait
    buckets, the window upload per mapped frame, frames/s, frame times and
    peak device memory. F3 runs two frames with use_view_direction (with
@@ -95,7 +96,8 @@ non-zero with no result line otherwise. In one pass it:
    iterations) and save_rendered_image: the panel files must be exactly
    the names the JAX package's rule gives (G1_PANELS), each a PNG that the
    port's decoder reads at 2H x 3W; the panels' K1 launches are counted
-   apart. G2 runs phase B with cuda.bf16_features (and end-of-frame panels
+   apart. G2 runs phase B, its first frame at G_ITERS_FIRST iterations,
+   with cuda.bf16_features (and end-of-frame panels
    at vis_freq 2 / 5, their names by the same rule): K1 ran, finite poses,
    the cloud grew, the view's positions within test_bf16.py's relative
    bound; prints ATE without alignment and frames/s beside phase B's and
@@ -105,7 +107,7 @@ non-zero with no result line otherwise. In one pass it:
    decoders on a mapping batch: cuda.mlp_precision 'highest' bit-equal to
    no setting, 'default' different (TF32) within G4_REL of it, the TF32
    switch off again after it and the prefetch thread's grey conversion
-   unchanged under it; then phase B again with 'default': ATE without
+   unchanged under it; then G2's run again with 'default': ATE without
    alignment under 2 cm, frames/s;
 9. phase H: data parallelism (``point_slam_tpu_torch/parallel/dist.py``).
    H1 runs phase B's configuration over frames 0-6 (iters_first cut to
@@ -167,7 +169,25 @@ non-zero with no result line otherwise. In one pass it:
    step's samples) and geo_fwd_split at their defaults (CAP 2^19, 300k
    points on frame 0's surfaces). Prints each cut as ``[J] cut:``; the
    children's and the A/Bs' launches go into the kernels line;
-12. prints one JSON line of the kernels, the card again, and last the line
+12. phase K: the ray top-k at every cell width, the kNN stage scripts and
+   the colour probes (``point_slam_tpu_torch/profiling``). K0 holds K1,
+   K2 and K3 EQUAL to the plain version at C = 4, 16, 48, 96 and 128
+   (P = 27; the generic instantiation, which takes every C but the built
+   32 and 64) on phase A's cloud at R = 5000 and 1500, checks that the
+   launcher sizes each block's shared memory as ops/knn.py counts it, that
+   the one refused shape (P = 64, C = 128) raises before any launch, and
+   that phase A's C = 64 device times are at most 10% above PERF.md's. K1, alone on the
+   card: knn_pallas_stages, knn_pallas2_v5, knn_pallas5 (the C-sweep
+   through K2 at 64, 48, 32), knn_chain, knn_split, knn_prod_stages (the
+   shipped path's stages and the rows-or-bytes verdict), profile_gather
+   and knn_packed_ab at their sizes with fewer timed calls: every stage
+   timed, the parity a share, the verdict given, the block top-k launches
+   of P1, P2 and P2' counted into the study's records. K2: the six colour
+   probes through their mains with their iterations cut: every report
+   finite, no NaN. Prints each cut as ``[K] cut:`` and the phase's wall; K1's and
+   K2's launches go into the kernels line (K0's comparisons do not), and
+   K1-K3's records carry ``widths``, the C held EQUAL;
+13. prints one JSON line of the kernels, the card again, and last the line
    {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
@@ -210,6 +230,7 @@ STUDY_ITERS = 10            # timed calls a study measurement
 # phase E: frames 0-10 of room.yaml, a checkpoint every 5 frames; the 2D
 # reconstruction metric over E_VIEWS_2D virtual views (1000 in the config)
 E_FRAMES = 11
+E_ITERS_FIRST = 500         # phase E's depth cut (phase B's: 1500)
 E_CKPT_FREQ = 5
 E_VIEWS_2D = 10
 E_CUBLAS_WORKSPACE = ":4096:8"   # the setting deterministic cuBLAS needs
@@ -221,6 +242,8 @@ F_FRAMES = 9
 F_EXTRA_AFTER = 4           # the dropped entry comes 10 ms after frame 4
 F_HOLES = 0.05              # share of zeroed depth pixels (sensor holes)
 F_DECODE_REPEATS = 20
+F2_TRACK_ITERS = 100        # phase F2's depth cut (the config's: 200)
+F2_ITERS_FIRST = 250        # phase F2's depth cut (the config's: 500)
 F3_ITERS_FIRST = 100        # phase F3's depth cut (the config's: 500)
 # phase G: frames 0-5 (G1) and 0-4 (G3); the panels G1 must leave, by the
 # JAX package's rule (vis_freq 5; tracking: a hook panel at iteration 20 of
@@ -233,6 +256,7 @@ G1_PANELS = {"tracking_vis": ["00005_0020"],
              "mapping_vis": ["00005_0100"],
              "rendered_image": []}
 G3_FRAMES = 5
+G_ITERS_FIRST = 500         # G2's and G4's depth cut (phase B's: 1500)
 G4_POINTS = 25000           # a mapping batch: 5000 rays x 5 samples
 G4_REL = 2e-2               # TF32 against IEEE f32, relative to max |out|
 # phase H: data parallelism. H1 (phase B's configuration over frames 0-6)
@@ -299,6 +323,21 @@ J_GEO_FREEZE = 3
 J_CHILDREN = ("J1", "J2", "J3BF16", "J3GEO")
 J_TIMEOUT_S = 900           # the children's limit, from their start
 J_LAUNCHES_TAG = "[J] kernel launches in"
+
+# phase K: the ray top-k's generic widths, the kNN scripts, the colour probes
+K_WIDTHS = (4, 16, 48, 96, 128)   # K0's C (64 and 32 are phase A's kind)
+K_REFUSED = (64, 128)       # (P, C) whose K1/K3 block is past the card's
+K_PERF_DEVICE_MS = {"ray_topk_packed": 0.0630, "ray_topk_planes": 0.0585,
+                    "ray_topk_fused": 0.0640}   # PERF.md §6, C = 64, R = 5000
+K_ITERS = 5                 # timed calls a stage (the scripts' 20)
+K_AB = dict(cap=1 << 17, points=22_500, cloud="surface", iters=5, repeats=1)
+K2_RUNS = (("color_direct", ["--steps", "20"]),
+           ("color_ablate", ["--steps", "10"]),
+           ("color_train_iso", ["--steps", "20"]),
+           ("color_debug", []),
+           ("color_blowup", ["--iters-first", "60", "--geo-iter-first",
+                             "20"]),
+           ("color_converge", ["--iters", "100", "--chunk", "25"]))
 
 KEY_FLOPS = 8               # a candidate-sample key: 3 sub, 3 mul, 2 add
 ADAM_FLOPS = 15             # one row-Adam element (row_adam.cu)
@@ -855,7 +894,7 @@ def phase_e(dev):
 
     def config(name):
         cfg = bench_config(E_FRAMES)
-        cfg["mapping"].update({"iters_first": ITERS_FIRST,
+        cfg["mapping"].update({"iters_first": E_ITERS_FIRST,
                                "ckpt_freq": E_CKPT_FREQ})
         cfg["cuda"]["knn_packed_coords"] = True
         cfg["render_datasets"] = ["synthetic"]
@@ -868,6 +907,7 @@ def phase_e(dev):
 
     cfg = config("continuous")
     print(f"[E] cut: frames 0-{E_FRAMES - 1} (bench.py runs 41); "
+          f"mapping.iters_first {ITERS_FIRST} -> {E_ITERS_FIRST}; "
           f"mapping.ckpt_freq {E_CKPT_FREQ}; meshing.eval_2d on with "
           f"eval_2d_n_imgs 1000 -> {E_VIEWS_2D}; meshing.voxel "
           f"{cfg['meshing']['voxel']} m as configured", flush=True)
@@ -1146,12 +1186,16 @@ def phase_f2(dev, root):
           f"mapping.lazy_start {cfg['mapping']['lazy_start']} -> 0 (the "
           f"config maps every frame up to frame "
           f"{cfg['mapping']['lazy_start']}, then every "
-          f"{cfg['mapping']['every_frame']}nd)", flush=True)
+          f"{cfg['mapping']['every_frame']}nd); tracking.iters "
+          f"{cfg['tracking']['iters']} -> {F2_TRACK_ITERS}; "
+          f"mapping.iters_first {cfg['mapping']['iters_first']} -> "
+          f"{F2_ITERS_FIRST}", flush=True)
     t0 = time.perf_counter()
     poses = write_tum_sequence(root, cfg)
     print(f"[F] wrote the TUM-RGBD sequence ({F_FRAMES + 1} stamps) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    cfg["mapping"]["lazy_start"] = 0
+    cfg["mapping"].update({"lazy_start": 0, "iters_first": F2_ITERS_FIRST})
+    cfg["tracking"]["iters"] = F2_TRACK_ITERS
     cfg["cuda"]["keyframe_host_ring"] = True
     cfg["verbose"] = True
     cfg["data"]["output"] = os.path.join(HERE, "output", "chip_smoke_tum")
@@ -1418,6 +1462,10 @@ def phase_g2(dev, ref, precision="highest"):
     from point_slam_tpu_torch.tools.eval_ate import evaluate_ate
     tag = "G2" if precision == "highest" else "G4"
     cfg = bench_config(7)
+    cfg["mapping"]["iters_first"] = G_ITERS_FIRST
+    print(f"[{tag}] cut: mapping.iters_first {ITERS_FIRST} -> "
+          f"{G_ITERS_FIRST} (phase B's numbers below are at {ITERS_FIRST})",
+          flush=True)
     cfg["cuda"].update({"knn_packed_coords": True,
                         "bf16_features": tag == "G2",
                         "mlp_precision": precision})
@@ -2536,10 +2584,194 @@ def phase_j_child(name, root):
         phase_j3_ab(dev, root, {"J3BF16": "bf16", "J3GEO": "geo"}[name])
 
 
+# ---------------------------------------------------------------- phase K
+
+
+def phase_k0(dev, a):
+    """K1-K3 at the generic kernel's widths on phase A's cloud, EQUAL to
+    the plain version at R = 5000 and 1500; the shared memory the launcher
+    sizes against ops/knn.py's count; the one refused shape; phase A's
+    C = 64 device times at most 10% above PERF.md's (a time the profiler
+    did not record is printed as such and holds nothing). Returns
+    {name: {C: {R: rec}}}."""
+    import torch
+    from point_slam_tpu_torch.ops import knn
+    cfg, mapper, _, depth, c2w = a_tables(dev)
+    cloud = mapper.cloud
+    args = (cloud.pos, cloud.n_points, mapper.cell_size, mapper.table_size)
+    build = {"ray_topk_packed": knn.build_packed_grid_index,
+             "ray_topk_planes": knn.build_grid_index,
+             "ray_topk_fused": knn.build_fused_grid_index}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    depth_d = torch.as_tensor(depth, device=dev)
+    c2w_d = torch.as_tensor(c2w, device=dev)
+    p, ns = mapper.rc.knn_probes, mapper.rc.n_surface
+    out = {}
+    for name, make in build.items():
+        out[name] = {}
+        for c in K_WIDTHS:
+            index = make(*args, c)
+            planes = knn.index_planes(index)
+            smem = knn.ray_topk_occupancy(planes, p, ns)[1]
+            want = knn.ray_topk_smem_bytes(name, p, c, ns)
+            if smem != want:
+                raise AssertionError(f"K0 {name} C={c}: the launcher sizes "
+                                     f"{smem} bytes, ops/knn.py counts {want}")
+            print(f"[K0] {name} C={c}:", flush=True)
+            out[name][c] = {r: hold_ray_topk("K0", name, index, r, p, cfg,
+                                             mapper.rc, g, depth_d, c2w_d)
+                            for r in RAY_BATCHES}
+            del index, planes
+    # the refused shape: the wrapper raises before any launch
+    pr, cr = K_REFUSED
+    index = knn.build_packed_grid_index(*args, cr)
+    q = torch.zeros((8, ns, 3), device=dev)
+    probes = torch.zeros((8, pr), dtype=torch.int32, device=dev)
+    before = dict(knn.LAUNCHES)
+    try:
+        knn.ray_topk(probes, knn.index_planes(index), q, 8,
+                     knn._lane_mask(pr * cr))
+    except ValueError as e:
+        print(f"[K0] refused as it should be: {e}", flush=True)
+    else:
+        raise AssertionError(f"K0: ray_topk launched at P={pr}, C={cr}")
+    if knn.LAUNCHES != before:
+        raise AssertionError("K0: the refused shape counted a launch")
+    slow = []
+    for name, want in K_PERF_DEVICE_MS.items():
+        got = a[name][max(RAY_BATCHES)]["device_ms"]
+        print(f"[K0] {name} C=64 R={max(RAY_BATCHES)} (phase A): device "
+              f"{shown(got)}, PERF.md's {want:.4f} ms (bound: 10% above)",
+              flush=True)
+        if got is not None and got > 1.1 * want:
+            slow.append(name)
+    if slow:
+        raise AssertionError(f"K0: {slow} at C = 64 more than 10% slower "
+                             "than PERF.md's device time")
+    return out
+
+
+def phase_k1(dev):
+    """The kNN scripts and profile_gather at their own sizes (fewer timed
+    calls), on the card alone. Returns (the kernels' launches, the block
+    top-k launches of P1, P2 and P2')."""
+    import torch
+    from point_slam_tpu_torch.profiling import (
+        knn_chain, knn_packed_ab, knn_pallas2_v5, knn_pallas5,
+        knn_pallas_stages, knn_prod_stages, knn_split, profile_gather,
+        workload as W)
+    for cut in (
+            f"K1: {K_ITERS} timed calls a stage (the scripts' 20; knn_chain "
+            "and profile_gather 3 of 10)",
+            f"K1: knn_packed_ab at CAP {K_AB['cap']} with {K_AB['points']} "
+            f"points on frame 0's surfaces (2^19, 300000 on the sheet, "
+            f"outside the room's view), {K_AB['iters']} iterations x "
+            f"{K_AB['repeats']} repeat (10 x 3)"):
+        print(f"[K] cut: {cut}", flush=True)
+    def bodies(rows, names):
+        return sum(rows[n]["launches"].get("block_topk", 0) for n in names)
+
+    def timed(rows):
+        bad = [n for n, r in rows.items() if not r["ms"] or r["ms"] <= 0]
+        if bad:
+            raise AssertionError(f"K1: stages without a time: {bad}")
+
+    def run():
+        res = {"stages": knn_pallas_stages.run(dev, iters=K_ITERS),
+               "v5": knn_pallas2_v5.run(dev, iters=K_ITERS)}
+        res["sweep"] = knn_pallas5.run(dev, iters=K_ITERS)
+        res["chain"] = knn_chain.run(dev, knn_chain.FULL, iters=3)
+        torch.cuda.empty_cache()
+        res["split"] = knn_split.run(dev, iters=K_ITERS)
+        res["prod"] = knn_prod_stages.run(dev, iters=K_ITERS)
+        res["gather"] = profile_gather.run(dev, 1, iters=3)
+        torch.cuda.empty_cache()
+        cfg = W.bench_config(4)
+        cfg["cuda"]["point_capacity_init"] = K_AB["cap"]
+        res["ab"] = knn_packed_ab.run(cfg, dev, K_AB["points"],
+                                      K_AB["cloud"], K_AB["iters"],
+                                      K_AB["repeats"])
+        torch.cuda.empty_cache()
+        return res
+
+    res, launches = j_counted(run)
+    for key in ("stages", "v5", "chain", "split", "gather"):
+        timed(res[key])
+    timed(res["prod"]["stages"])
+    # at 300k points a cell of the sheet holds ~150: every width drops
+    # points, so the parity is a measurement (it falls with C), not a gate
+    for c, row in res["sweep"].items():
+        if not 0.0 < row["parity_pct"] <= 100.0 or not row["ms"]:
+            raise AssertionError(f"K1: C={c} parity {row['parity_pct']}")
+    if "verdict" not in res["prod"]:
+        raise AssertionError("K1: knn_prod_stages gave no verdict")
+    if not res["ab"].get("packed_saves", {}).get("device"):
+        raise AssertionError("K1: knn_packed_ab measured no device time")
+    study = {"P1": bodies(res["stages"], ("s4 +block topk (P1)", "v3 full")),
+             "P2": bodies(res["v5"], ("v4 full",)),
+             "P2'": bodies(res["v5"], ("v5 full compacted",))}
+    print(f"[K1] launches {launches}; block_topk by body {study}",
+          flush=True)
+    return launches, study
+
+
+def phase_k2(dev):
+    """The six colour probes through their entry points, iterations cut;
+    colour_blowup and colour_converge at 680x1200. Each report finite."""
+    import importlib
+    import math
+
+    def finite(x):
+        if isinstance(x, dict):
+            return all(finite(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return all(finite(v) for v in x)
+        return not isinstance(x, float) or math.isfinite(x)
+
+    def run():
+        outs = {}
+        for name, argv in K2_RUNS:
+            mod = importlib.import_module(
+                f"point_slam_tpu_torch.profiling.{name}")
+            t0 = time.perf_counter()
+            outs[name] = mod.main(argv + ["--device", "cuda"])
+            print(f"[K2] {name} {' '.join(argv)}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return outs
+
+    for name, argv in K2_RUNS:
+        print(f"[K] cut: K2 {name} {' '.join(argv) or '(one batch)'}",
+              flush=True)
+    outs, counts = j_counted(run)
+    bad = [n for n, o in outs.items() if not o or not finite(o)]
+    if bad or outs["color_blowup"]["nan_feats"]:
+        raise AssertionError(f"K2: non-finite or empty reports {bad}")
+    j_launched("K2 colour probes", counts)
+    return counts
+
+
+def phase_k(dev, a=None):
+    """The ray top-k at every width (K0), the kNN scripts (K1), the colour
+    probes (K2), each alone on the card. Returns (phase K's launches, K0's
+    records, the block top-k launches by body)."""
+    t0 = time.perf_counter()
+    if a is None:
+        a = phase_a(dev)
+    k0 = phase_k0(dev, a)
+    launches, study = phase_k1(dev)
+    t2 = time.perf_counter()
+    for k, v in phase_k2(dev).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[K] phase K wall {time.perf_counter() - t0:.2f} s (K2 "
+          f"{time.perf_counter() - t2:.2f} s); launches {launches}",
+          flush=True)
+    return launches, k0, study
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJ",
+    ap.add_argument("--phases", default="ABCDEFGHIJK",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     ap.add_argument("--j-root", default=None,
@@ -2578,7 +2810,7 @@ def main():
     if phases in J_CHILDREN:
         phase_j_child(phases, args.j_root)
         return
-    if phases != "ABCDEFGHIJ":
+    if phases != "ABCDEFGHIJK":
         for name, phase in (("A", phase_a),
                             ("B", lambda d: phase_b(d, b_ref)),
                             ("C", phase_c), ("D", phase_d),
@@ -2586,7 +2818,7 @@ def main():
                             ("F", phase_f),
                             ("G", lambda d: phase_g(d, b_ref)),
                             ("H", phase_h), ("I", phase_i),
-                            ("J", phase_j)):
+                            ("J", phase_j), ("K", phase_k)):
             if name in phases:
                 phase(dev)
         return
@@ -2604,11 +2836,15 @@ def main():
         j_children = jc.join()
     i_totals = phase_i(dev)
     j_totals = phase_j(dev, j_children)
+    k_totals, k0, k_study = phase_k(dev, a)
     for name in launches:
         launches[name] += (f_launches.get(name, 0) + g_launches.get(name, 0)
                            + h_launches.get(name, 0)
-                           + i_totals.get(name, 0) + j_totals.get(name, 0))
-    print(json.dumps({"kernels": kernel_records(a, launches)
+                           + i_totals.get(name, 0) + j_totals.get(name, 0)
+                           + k_totals.get(name, 0))
+    for body, n in k_study.items():
+        study[body]["launches"] += n
+    print(json.dumps({"kernels": kernel_records(a, launches, k0)
                       + study_records(study)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2616,9 +2852,10 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def kernel_records(a, launches):
+def kernel_records(a, launches, k0):
     """The kernels' JSON records from phase A's measurements and the main
-    paths' launch counts."""
+    paths' launch counts; K1-K3's ``widths``: the C that phases A and K0
+    held EQUAL to the plain version."""
     replaces = {"ray_topk_packed": "point_slam_tpu/ops/knn.py:664",
                 "ray_topk_planes": "point_slam_tpu/ops/knn.py:630",
                 "ray_topk_fused": "point_slam_tpu/ops/knn.py:694",
@@ -2639,6 +2876,8 @@ def kernel_records(a, launches):
                ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             # no single PyTorch call computes any of the four functions
             "library_ms": None})
+        if name in k0:
+            kernels[-1]["widths"] = sorted({64, *k0[name]})
     return kernels
 
 

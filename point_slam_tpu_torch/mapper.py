@@ -364,9 +364,10 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     leaf's over its first ``n_live`` rows (the others get no gradient).
     Without a group the block is the batch and the sums are local.
 
-    ``chunk_hook(it_prev, it_now, packed)``, if given, is called after
-    iterations it_now = chunk, 2*chunk, ... below n_iters with the packed
-    leaf as it stands (it_prev = it_now - chunk).
+    ``chunk_hook(it_prev, it_now, packed, stats)``, if given, is called
+    after iterations it_now = chunk, 2*chunk, ... below n_iters with the
+    packed leaf as it stands (it_prev = it_now - chunk) and the stats of
+    iteration it_now - 1 (as returned below).
 
     Updates ``dec`` in place and returns (packed, stats (3,) device tensor
     [geo_loss, color_loss, n_mask] of the last iteration, the exposure
@@ -479,7 +480,7 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
         if chunk_hook is not None and (it + 1) % chunk == 0 \
                 and it + 1 < n_iters:
-            chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach())
+            chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach(), stats)
     return (leaves[0].detach(), stats,
             None if i_exp is None else leaves[i_exp].detach(),
             None if i_cam is None else leaves[i_cam].detach())
@@ -803,7 +804,8 @@ class Mapper:
 
             hook = None
             if self.vis_hook is not None:
-                def hook(it_prev, it_now, packed_now, c2w=cur_c2w_dev):
+                def hook(it_prev, it_now, packed_now, _stats,
+                         c2w=cur_c2w_dev):
                     # publish the in-progress cloud so the panel renders
                     # the current map (the decoders step in place)
                     self.cloud = self.cloud._replace(packed=packed_now)

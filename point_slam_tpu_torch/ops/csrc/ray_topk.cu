@@ -32,8 +32,14 @@
 // ids at the winners. In practice it is bound by issue and latency: of a
 // ray's 1,728 slots only ~370 hold a point on the synthetic room, and each
 // sample's top-8 is a chain of dependent insertions. The design:
-// - C is a template parameter (64 and 32), so lane numbers and probe
-//   indices are shifts and masks;
+// - the row width C: 64 and 32 are template parameters, so lane numbers
+//   and probe indices are shifts and masks; every other C (the JAX
+//   package takes any grid_max_per_cell, 96 by default) runs the generic
+//   instantiation <LAYOUT, 0>, which takes C at run time and divides by it
+//   with a multiply-high by a magic number computed on the host (Width<0>);
+//   a row that is not a whole number of 16-byte chunks (C % 4 != 0) is
+//   staged by 4-byte copies, and the loops over a ray's P*C slots keep
+//   every lane of a warp in step when P*C is not a multiple of 32;
 // - persistent blocks (the occupancy calculator's blocks an SM times the
 //   SMs) walk rays r = blockIdx.x, += gridDim.x through a two-stage
 //   shared-memory ring. A stage holds a ray's P rows of each staged plane
@@ -75,15 +81,23 @@
 // next 32 lanes' keys cannot enter. With C >= 2k they lie in probe 0 (a
 // sample short of k points leaves more than C - k >= k slots of it empty;
 // K3: probe 0's empty slots, then its id lanes C, C+1, ...); the scan does
-// not rely on that, nor on the build filling a bucket from slot 0.
+// not rely on that (chip_smoke.py's phase K0 holds C = 4 EQUAL), nor on
+// the build filling a bucket from slot 0.
 //
-// ---- Shared memory and occupancy at P=27, C=64, ns=5 (160 threads): two
-// stages of kStaged*P*C words and the queries, three slots of P probe ids,
-// two counters, and the compacted arrays sized for every slot. K1 and K3
-// (two staged planes, 4*P*C compacted words): 55,756 bytes, 4 blocks an
-// SM. K2 (three staged planes, P*C compacted lanes): 48,844 bytes, 4
-// blocks an SM. ptxas (sm_90a, CUDA 12.8): K1 31 registers, K2 26, K3 30,
-// no spills, at either C.
+// ---- Shared memory and occupancy. A block holds two stages of
+// kStaged*P*C words and the queries, three slots of P probe ids, two
+// counters, and the compacted arrays sized for every slot: about 32*P*C
+// bytes for K1 and K3 (two staged planes, 4*P*C compacted words) and
+// 28*P*C for K2 (three staged planes, P*C compacted lanes), sized from the
+// call's (P, C, ns) by block_words. At P=27, C=64, ns=5 (160 threads):
+// K1 and K3 55,756 bytes, K2 48,844, 4 blocks an SM each. C <= 96 fits at
+// every P <= 64 (K1 and K3 at P=64, C=96: 197,512 bytes, one block an
+// SM), C = 128 at P <= 56. A block past kMaxSmem is refused (ops/knn.py
+// raises first, naming the bytes); the occupancy calculator decides the
+// blocks an SM. ptxas (sm_90a, CUDA 12.8), registers at C = 32 and 64 /
+// generic: K1 30 / 32, K2 27 / 36, K3 44 / 38, no spills; at 160 threads
+// a block the shared memory, not the registers, sets the blocks an SM.
+
 
 #include <cuda_runtime.h>
 
@@ -102,16 +116,67 @@ constexpr int kNoKernel = static_cast<int>(cudaErrorInvalidValue);
 enum Layout { kPacked = 0, kPlanes = 1, kFused = 2 };
 
 // What differs between the layouts, at compile time.
-template <int LAYOUT, int C>
+template <int LAYOUT>
 struct Rows {
   // f32 coordinate planes with metric queries (no lattice, no wrap)
   static constexpr bool kMetric = LAYOUT == kPlanes;
   // (P, C) word planes a stage holds
   static constexpr int kStaged = LAYOUT == kPlanes ? 3 : 2;
-  // words between two rows of a plane in device memory
-  static constexpr int kRowStride = LAYOUT == kFused ? 2 * C : C;
-  // lanes a probe
-  static constexpr int kLanes = LAYOUT == kFused ? 2 * C : C;
+  // words between two rows of a plane in device memory; lanes a probe
+  __host__ __device__ static int row_stride(int c) {
+    return LAYOUT == kFused ? 2 * c : c;
+  }
+};
+
+// n / d for 0 <= n with n * d < 2^32 (the host checks it): the high word
+// of n * ceil(2^32 / d), exact under that bound.
+struct Div {
+  int d;
+  unsigned magic;  // ceil(2^32 / d); 0 for d == 1
+  static Div of(int d) {
+    return {d, d > 1 ? static_cast<unsigned>(((1ull << 32) + d - 1) / d)
+                     : 0u};
+  }
+  __device__ __forceinline__ int quo(int n) const {
+    return magic ? static_cast<int>(__umulhi(static_cast<unsigned>(n), magic))
+                 : n;
+  }
+};
+
+// The row width C. A built width (a power of two, >= 32) is a compile-time
+// constant: quotients are shifts, and a row is C/4 16-byte chunks.
+template <int C>
+struct Width {
+  static_assert(C % 32 == 0 && (C & (C - 1)) == 0, "C");
+  static constexpr bool kWhole = true;  // P*C is a multiple of 32
+  static Width make(int) { return {}; }
+  __host__ __device__ int c() const { return C; }
+  __device__ __forceinline__ int quo(int n) const {
+    return static_cast<unsigned>(n) / C;
+  }
+  __device__ __forceinline__ int words() const { return 4; }
+  __device__ __forceinline__ int chunk_quo(int j) const {
+    return static_cast<unsigned>(j) / (C / 4);
+  }
+};
+
+// Any other width, at run time: quotients by a magic number; 16-byte
+// chunks where C % 4 == 0, single words otherwise.
+template <>
+struct Width<0> {
+  static constexpr bool kWhole = false;
+  Div by_c, by_chunk;
+  static Width make(int c) {
+    return {Div::of(c), Div::of(c % 4 == 0 ? c / 4 : c)};
+  }
+  __host__ __device__ int c() const { return by_c.d; }
+  __device__ __forceinline__ int quo(int n) const { return by_c.quo(n); }
+  __device__ __forceinline__ int words() const {
+    return by_c.d % 4 == 0 ? 4 : 1;
+  }
+  __device__ __forceinline__ int chunk_quo(int j) const {
+    return by_chunk.quo(j);
+  }
 };
 
 // The planes' device pointers as int32 words: K1 pxyz, pid; K2 px, py, pz,
@@ -176,35 +241,42 @@ __device__ __forceinline__ int pair_key(float x, float y, float z, float qx,
 }
 
 // Does a plane-0 word hold a point? (-1 empty; K2: +inf empty)
-template <int LAYOUT, int C>
+template <int LAYOUT>
 __device__ __forceinline__ bool holds_point(int v) {
-  return Rows<LAYOUT, C>::kMetric ? v != kInfBits : v >= 0;
+  return Rows<LAYOUT>::kMetric ? v != kInfBits : v >= 0;
 }
 
 // Is lane l of the staged ray one without a point (a +inf key)?
 template <int LAYOUT, int C>
-__device__ __forceinline__ bool empty_lane(const int* rows, int l) {
-  if constexpr (LAYOUT == kFused)  // an id lane, or an empty coordinate
-    return (l & C) != 0 || rows[((l >> 1) & ~(C - 1)) | (l & (C - 1))] < 0;
-  else
-    return !holds_point<LAYOUT, C>(rows[l]);
+__device__ __forceinline__ bool empty_lane(const int* rows, int l,
+                                           const Width<C>& w) {
+  if constexpr (LAYOUT == kFused) {  // an id lane, or an empty coordinate
+    const int h = w.quo(l);          // 2 * probe + (an id half)
+    return (h & 1) || rows[(h >> 1) * w.c() + (l - h * w.c())] < 0;
+  } else {
+    return !holds_point<LAYOUT>(rows[l]);
+  }
 }
 
 // The id of the winning lane win (P probes; ids: this ray's probe ids).
 template <int LAYOUT, int C>
 __device__ __forceinline__ int winner_id(const int* rows, const int* ids,
-                                         const Planes& src, int win, int P) {
+                                         const Planes& src, int win, int P,
+                                         const Width<C>& w) {
+  const int c = w.c();
   if constexpr (LAYOUT == kFused) {
-    const int at = win + C;  // over whole 2C rows: the next probe's coords
-    if (at >= P * 2 * C) return 0;  // for an id lane
-    const int half = (at & C) ? P * C : 0;
-    return rows[half + ((at >> 1) & ~(C - 1)) + (at & (C - 1))];
+    const int at = win + c;  // over whole 2C rows: the next probe's coords
+    if (at >= P * 2 * c) return 0;  // for an id lane
+    const int h = w.quo(at);
+    return rows[((h & 1) ? P * c : 0) + (h >> 1) * c + (at - h * c)];
   } else {
-    if (win >= P * C) return 0;
-    if constexpr (LAYOUT == kPacked)
-      return rows[P * C + win];
-    else  // pid in device memory, at the winner's bucket row
-      return src.p[3][static_cast<long>(ids[win / C]) * C + win % C];
+    if (win >= P * c) return 0;
+    if constexpr (LAYOUT == kPacked) {
+      return rows[P * c + win];
+    } else {  // pid in device memory, at the winner's bucket row
+      const int p = w.quo(win);
+      return src.p[3][static_cast<long>(ids[p]) * c + (win - p * c)];
+    }
   }
 }
 
@@ -259,16 +331,18 @@ __device__ __forceinline__ int entry(const int (&l)[kMaxK], int i) {
 // Shared memory of a block, in int32 words: two stages of [kStaged (P, C)
 // planes | ns*3 queries, padded to 16 bytes], three slots of P probe ids,
 // two candidate counters, and the ray's points compacted as four (P*C,)
-// arrays, x, y, z (f32) and lane number (K2: the lane alone).
-template <int LAYOUT, int C>
-__host__ __device__ __forceinline__ int stage_words(int P, int ns) {
-  return Rows<LAYOUT, C>::kStaged * P * C + ((3 * ns + 3) & ~3);
+// arrays, x, y, z (f32) and lane number (K2: the lane alone). ops/knn.py's
+// ray_topk_smem_bytes repeats these sums.
+template <int LAYOUT>
+__host__ __device__ __forceinline__ long stage_words(int P, int c, int ns) {
+  return Rows<LAYOUT>::kStaged * static_cast<long>(P) * c +
+         ((3 * ns + 3) & ~3);
 }
 
-template <int LAYOUT, int C>
-__host__ __device__ __forceinline__ int block_words(int P, int ns) {
-  return 2 * stage_words<LAYOUT, C>(P, ns) + 3 * P + 2 +
-         (Rows<LAYOUT, C>::kMetric ? 1 : 4) * P * C;
+template <int LAYOUT>
+__host__ __device__ __forceinline__ long block_words(int P, int c, int ns) {
+  return 2 * stage_words<LAYOUT>(P, c, ns) + 3 * P + 2 +
+         (Rows<LAYOUT>::kMetric ? 1 : 4) * static_cast<long>(P) * c;
 }
 
 __device__ __forceinline__ void fetch_ids(int* ids, const int* probes,
@@ -281,21 +355,28 @@ __device__ __forceinline__ void fetch_ids(int* ids, const int* probes,
 template <int LAYOUT, int C>
 __device__ __forceinline__ void fetch_rows(int* st, const int* ids,
                                            const Planes& src, const float* q,
-                                           long r, int P, int ns) {
-  using L = Rows<LAYOUT, C>;
-  constexpr int kChunks = C / 4;  // 16-byte chunks a C-word row
+                                           long r, int P, int ns,
+                                           const Width<C>& w) {
+  using L = Rows<LAYOUT>;
+  const int c = w.c();
+  const int words = w.words();   // 4: 16-byte chunks; 1: single words
+  const int chunks = c / words;  // a C-word row's copies
+  const long stride = L::row_stride(c);
 #pragma unroll
   for (int pl = 0; pl < L::kStaged; ++pl) {
-    for (int j = threadIdx.x; j < P * kChunks; j += blockDim.x) {
-      const int p = j / kChunks;
-      const int c16 = j % kChunks;
-      cp_async16(st + (pl * P + p) * C + c16 * 4,
-                 src.p[pl] + static_cast<long>(ids[p]) * L::kRowStride +
-                     c16 * 4);
+    for (int j = threadIdx.x; j < P * chunks; j += blockDim.x) {
+      const int p = w.chunk_quo(j);
+      const int off = (j - p * chunks) * words;
+      int* dst = st + (pl * P + p) * c + off;
+      const int* from = src.p[pl] + ids[p] * stride + off;
+      if (words == 4)
+        cp_async16(dst, from);
+      else
+        cp_async4(dst, from);
     }
   }
   for (int j = threadIdx.x; j < 3 * ns; j += blockDim.x)
-    cp_async4(st + L::kStaged * P * C + j, q + r * ns * 3 + j);
+    cp_async4(st + L::kStaged * P * c + j, q + r * ns * 3 + j);
 }
 
 // One block: ns warps, one a sample. keys_out, ids_out: (R, ns*k) int32
@@ -306,17 +387,20 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
                                     const float* __restrict__ q,
                                     int* __restrict__ keys_out,
                                     int* __restrict__ ids_out, int R, int P,
-                                    int ns, int k, int lane_mask) {
-  static_assert(C % 32 == 0 && (C & (C - 1)) == 0 && C >= kMaxK, "C");
-  using L = Rows<LAYOUT, C>;
+                                    int ns, int k, int lane_mask,
+                                    const Width<C> w) {
+  using L = Rows<LAYOUT>;
   extern __shared__ __align__(16) int smem_i[];
-  const int st_words = stage_words<LAYOUT, C>(P, ns);
+  const int c = w.c();
+  const int pc = P * c;                            // staged slots a plane
+  const int lanes = LAYOUT == kFused ? 2 * pc : pc;  // lanes a ray
+  const int st_words = static_cast<int>(stage_words<LAYOUT>(P, c, ns));
   int* ids = smem_i + 2 * st_words;  // three slots of P
   int* count = ids + 3 * P;          // two counters
   float* cx = reinterpret_cast<float*>(count + 2);
-  float* cy = cx + P * C;
-  float* cz = cy + P * C;
-  int* cl = count + 2 + (L::kMetric ? 0 : 3 * P * C);
+  float* cy = cx + pc;
+  float* cz = cy + pc;
+  int* cl = count + 2 + (L::kMetric ? 0 : 3 * pc);
   const int lane = threadIdx.x & 31;
   const int s = threadIdx.x >> 5;
   const int keep = ~lane_mask;
@@ -330,7 +414,7 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
   if (threadIdx.x == 0) count[0] = 0;
   cp_async_wait_all();
   __syncthreads();
-  if (r < R) fetch_rows<LAYOUT, C>(smem_i, ids, src, q, r, P, ns);
+  if (r < R) fetch_rows<LAYOUT>(smem_i, ids, src, q, r, P, ns, w);
   if (r + G < R) fetch_ids(ids + P, probes, r + G, P);
   cp_async_commit();
 
@@ -338,18 +422,21 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
     cp_async_wait_all();  // ray r's rows, ray r + G's ids
     __syncthreads();      // and every warp is done with the ray before
     if (r + G < R)
-      fetch_rows<LAYOUT, C>(smem_i + ((it + 1) & 1) * st_words,
-                            ids + (it + 1) % 3 * P, src, q, r + G, P, ns);
+      fetch_rows<LAYOUT>(smem_i + ((it + 1) & 1) * st_words,
+                         ids + (it + 1) % 3 * P, src, q, r + G, P, ns, w);
     if (r + 2 * G < R) fetch_ids(ids + (it + 2) % 3 * P, probes, r + 2 * G, P);
     cp_async_commit();
     const int* rows = smem_i + (it & 1) * st_words;
-    const float* qs = reinterpret_cast<const float*>(rows + L::kStaged * P * C);
+    const float* qs = reinterpret_cast<const float*>(rows + L::kStaged * pc);
 
     // compact the ray's points, each read once: each warp takes 32-slot
-    // chunks and appends its points at a shared counter
-    for (int ci = threadIdx.x; ci < P * C; ci += blockDim.x) {
-      const int v = rows[ci];
-      const bool pt = holds_point<LAYOUT, C>(v);
+    // chunks and appends its points at a shared counter (the chunk bases
+    // are warp-uniform, so every lane reaches the ballot)
+    for (int base = threadIdx.x - lane; base < pc; base += blockDim.x) {
+      const int ci = base + lane;
+      const bool in = Width<C>::kWhole || ci < pc;
+      const int v = in ? rows[ci] : 0;
+      const bool pt = in && holds_point<LAYOUT>(v);
       const unsigned fin = __ballot_sync(kFull, pt);
       if (fin) {
         int at = 0;
@@ -361,7 +448,8 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
             cy[at] = lattice_coord(v, 10);
             cz[at] = lattice_coord(v, 20);
           }
-          cl[at] = LAYOUT == kFused ? ci + (ci & ~(C - 1)) : ci;
+          // K3's lane over whole 2C rows: the slot plus its probe's C
+          cl[at] = LAYOUT == kFused ? ci + w.quo(ci) * c : ci;
         }
       }
     }
@@ -379,8 +467,8 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
         return pair_key<false>(cx[i], cy[i], cz[i], qx, qy, qz, keep, cl[i]);
       const int j = cl[i];  // K2: the lane is the point's stage slot
       return pair_key<true>(__int_as_float(rows[j]),
-                            __int_as_float(rows[P * C + j]),
-                            __int_as_float(rows[2 * P * C + j]), qx, qy, qz,
+                            __int_as_float(rows[pc + j]),
+                            __int_as_float(rows[2 * pc + j]), qx, qy, qz,
                             keep, j);
     };
     if (n > 0) first_chunk(l, key_at(lane), lane);
@@ -391,19 +479,19 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
     }
     // the seeds, only for a sample with fewer than k finite keys
     int kth = entry(l, k - 1);
-    for (int base = 0; base < P * L::kLanes && (inf_key | base) < kth;
-         base += 32) {
+    for (int base = 0; base < lanes && (inf_key | base) < kth; base += 32) {
       const int ln = base + lane;
-      merge_keys(l, empty_lane<LAYOUT, C>(rows, ln) ? (inf_key | ln)
-                                                    : kSpentKey);
+      const bool seed = (Width<C>::kWhole || ln < lanes) &&
+                        empty_lane<LAYOUT>(rows, ln, w);
+      merge_keys(l, seed ? (inf_key | ln) : kSpentKey);
       kth = entry(l, k - 1);
     }
     if (lane < k) {
       const int win = entry(l, lane);
       const long o = (r * ns + s) * k + lane;
       keys_out[o] = win;
-      ids_out[o] = winner_id<LAYOUT, C>(rows, ids + it % 3 * P, src,
-                                        win & lane_mask, P);
+      ids_out[o] = winner_id<LAYOUT>(rows, ids + it % 3 * P, src,
+                                     win & lane_mask, P, w);
     }
     // no barrier here: the next ray's first one, which every warp reaches
     // only when done with this ray, comes before anything is overwritten
@@ -413,10 +501,9 @@ __global__ void ray_topk_persistent(const int* __restrict__ probes,
 // The kernel's blocks an SM holds at this shape (0 if none), after raising
 // its dynamic shared-memory limit and asking for the largest carveout.
 template <int LAYOUT, int C>
-int occupancy(int P, int ns, size_t* smem_out) {
+int occupancy(int P, int c, int ns, size_t* smem_out) {
   const auto kernel = ray_topk_persistent<LAYOUT, C>;
-  const size_t smem =
-      sizeof(int) * static_cast<size_t>(block_words<LAYOUT, C>(P, ns));
+  const size_t smem = sizeof(int) * block_words<LAYOUT>(P, c, ns);
   *smem_out = smem;
   if (smem > kMaxSmem) return 0;
   static size_t raised = 0;
@@ -442,14 +529,14 @@ struct Call {
   Planes src;
   const float* q;
   int* out;
-  int R, P, ns, k, lane_mask, n_sm;
+  int R, P, C, ns, k, lane_mask, n_sm;
   cudaStream_t stream;
 };
 
 template <int LAYOUT, int C>
 int launch(const Call& a) {
   size_t smem = 0;
-  const int per_sm = occupancy<LAYOUT, C>(a.P, a.ns, &smem);
+  const int per_sm = occupancy<LAYOUT, C>(a.P, a.C, a.ns, &smem);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long grid = static_cast<long>(per_sm) * a.n_sm < a.R
                         ? static_cast<long>(per_sm) * a.n_sm
@@ -458,7 +545,7 @@ int launch(const Call& a) {
       <<<static_cast<unsigned>(grid), 32 * a.ns, smem, a.stream>>>(
           a.probes, a.src, a.q, a.out,
           a.out + static_cast<long>(a.R) * a.ns * a.k, a.R, a.P, a.ns, a.k,
-          a.lane_mask);
+          a.lane_mask, Width<C>::make(a.C));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,22 +554,29 @@ struct Kernel {
   static constexpr int layout = LAYOUT, width = C;
 };
 
-// f(Kernel<layout, C>{}) for a built (layout, C); ``missing`` otherwise.
+// f(Kernel<layout, C>{}) with the built widths 64 and 32 as themselves and
+// every other C as the generic instantiation (width 0).
 template <int LAYOUT, class F>
-int with_width(int C, int missing, F&& f) {
+int with_width(int C, F&& f) {
   if (C == 64) return f(Kernel<LAYOUT, 64>{});
   if (C == 32) return f(Kernel<LAYOUT, 32>{});
-  return missing;
+  return f(Kernel<LAYOUT, 0>{});
 }
 
 template <class F>
 int with_kernel(int layout, int C, int missing, F&& f) {
   switch (layout) {
-    case kPacked: return with_width<kPacked>(C, missing, f);
-    case kPlanes: return with_width<kPlanes>(C, missing, f);
-    case kFused: return with_width<kFused>(C, missing, f);
+    case kPacked: return with_width<kPacked>(C, f);
+    case kPlanes: return with_width<kPlanes>(C, f);
+    case kFused: return with_width<kFused>(C, f);
   }
   return missing;
+}
+
+// The divisions' bound (Div): every quotient of the kernel is of a number
+// below 2*P*C by C, or below P*C by C/4 or C.
+bool divisible(int P, int C) {
+  return 2ull * P * C * C < (1ull << 32);
 }
 
 }  // namespace
@@ -492,12 +586,14 @@ extern "C" {
 // All three layouts. layout: kPacked (0), kPlanes (1) or kFused (2);
 // probes (R, P) i32; p0..p3 the planes in ops/knn.py::index_planes' order
 // (K1 pxyz, pid; K2 px, py, pz, pid; K3 the plane), each contiguous and
-// 16-byte aligned, the unused ones null; C = 32 or 64 (K3's rows are 2C
-// wide); q (R, ns, 3) f32 (K1, K3 lattice coordinates mod 1024; K2
-// metric). out: one (2, R, ns*k) i32 buffer, the keys and then the
+// 16-byte aligned, the unused ones null; C >= 1 the row width (K3's rows
+// are 2C wide; 32 and 64 are built as constants, any other C runs the
+// generic kernel); q (R, ns, 3) f32 (K1, K3 lattice coordinates mod 1024;
+// K2 metric). out: one (2, R, ns*k) i32 buffer, the keys and then the
 // winners' ids (f32 values; K3's as copied bits). n_sm: the card's SM
 // count (the persistent grid is the blocks an SM holds times n_sm, at most
-// R). Returns cudaGetLastError() after the launch.
+// R). Returns cudaGetLastError() after the launch; a block past the
+// shared memory is refused (cudaErrorInvalidConfiguration).
 int ray_topk(int layout, const void* probes, const void* p0, const void* p1,
              const void* p2, const void* p3, const void* q, void* out, int R,
              int P, int C, int ns, int k, int lane_mask, int n_sm,
@@ -505,7 +601,7 @@ int ray_topk(int layout, const void* probes, const void* p0, const void* p1,
   const long lanes = static_cast<long>(P) * (layout == kFused ? 2 * C : C);
   if (R <= 0 || P <= 0 || C <= 0 || ns <= 0 || ns > 32 || k <= 0 ||
       k > kMaxK || n_sm <= 0 || lanes > lane_mask + 1L ||
-      lane_mask >= (1 << 23))
+      lane_mask >= (1 << 23) || !divisible(P, C))
     return kNoKernel;
   const int* w0 = static_cast<const int*>(p0);
   const Planes src =
@@ -515,7 +611,7 @@ int ray_topk(int layout, const void* probes, const void* p0, const void* p1,
                     static_cast<const int*>(p2), static_cast<const int*>(p3)}};
   const Call call{static_cast<const int*>(probes), src,
                   static_cast<const float*>(q), static_cast<int*>(out),
-                  R, P, ns, k, lane_mask, n_sm,
+                  R, P, C, ns, k, lane_mask, n_sm,
                   static_cast<cudaStream_t>(stream)};
   return with_kernel(layout, C, kNoKernel, [&](auto kern) {
     using K = decltype(kern);
@@ -524,14 +620,18 @@ int ray_topk(int layout, const void* probes, const void* p0, const void* p1,
 }
 
 // The blocks an SM holds of ray_topk's kernel for (layout, P, C, ns), and
-// the block's shared memory in bytes; 0 blocks for a (layout, C) it is not
-// built for or a block that does not fit.
+// the block's shared memory in bytes; 0 blocks for a block that does not
+// fit (or an unknown layout).
 int ray_topk_occupancy(int layout, int P, int C, int ns, long* smem_bytes) {
   size_t smem = 0;
-  const int n = with_kernel(layout, C, 0, [&](auto kern) {
-    using K = decltype(kern);
-    return occupancy<K::layout, K::width>(P, ns, &smem);
-  });
+  const int n = P > 0 && C > 0 && divisible(P, C)
+                    ? with_kernel(layout, C, 0,
+                                  [&](auto kern) {
+                                    using K = decltype(kern);
+                                    return occupancy<K::layout, K::width>(
+                                        P, C, ns, &smem);
+                                  })
+                    : 0;
   *smem_bytes = static_cast<long>(smem);
   return n;
 }

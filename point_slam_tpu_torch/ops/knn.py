@@ -570,8 +570,36 @@ _KERNELS = {2: ("ray_topk_packed", 0, (torch.int32, torch.float32)),
             4: ("ray_topk_planes", 1, (torch.float32,) * 4),
             1: ("ray_topk_fused", 2, (torch.int32,))}
 
-# The row widths C the kernels are built for (the fused rows are 2C wide).
-RAY_TOPK_WIDTHS = (32, 64)
+# Shared memory a block of the ray top-k kernel can use on the card.
+RAY_TOPK_MAX_SMEM = 232_448
+
+
+def ray_topk_smem_bytes(name: str, p: int, c: int, ns: int) -> int:
+    """Shared memory of one block of the ray top-k kernel ``name`` (a
+    LAUNCHES name) at P probes, row width C and ns samples: csrc/
+    ray_topk.cu's block_words in bytes. Two stages of the staged (P, C)
+    planes (K2: x, y, z; K1, K3: two) and the queries padded to 16 bytes,
+    three slots of P probe ids, two counters, and the compacted points
+    (K2: a lane each; K1, K3: x, y, z and the lane)."""
+    planes = name == "ray_topk_planes"
+    stage = (3 if planes else 2) * p * c + ((3 * ns + 3) & ~3)
+    return 4 * (2 * stage + 3 * p + 2 + (1 if planes else 4) * p * c)
+
+
+def check_ray_topk_shape(name: str, p: int, c: int, ns: int) -> int:
+    """The block's shared-memory bytes if kernel ``name`` takes P probes of
+    width C with ns samples; raises ValueError, naming the bytes needed
+    against the card's 232,448, where one block does not fit. Every C >= 1
+    is built (32 and 64 as constants, the rest by the generic kernel)."""
+    if p < 1 or c < 1 or not 1 <= ns <= 32:
+        raise ValueError(f"{name}: P={p}, C={c}, ns={ns} outside P >= 1, "
+                         "C >= 1, 1 <= ns <= 32")
+    smem = ray_topk_smem_bytes(name, p, c, ns)
+    if smem > RAY_TOPK_MAX_SMEM:
+        raise ValueError(f"{name}: a block at P={p}, C={c}, ns={ns} needs "
+                         f"{smem} bytes of shared memory; the card gives a "
+                         f"block {RAY_TOPK_MAX_SMEM}")
+    return smem
 
 
 def _kernel_of(planes):
@@ -589,8 +617,8 @@ def ray_topk_occupancy(planes: Tuple[torch.Tensor, ...], p: int, ns: int):
     """(blocks an SM holds, shared-memory bytes a block) of the kernel that
     ray_topk launches for these planes at P probes and ns samples, as its
     launcher sizes the persistent grid: the card's occupancy calculator,
-    after the kernel asks for the largest shared-memory carveout. (0, 0)
-    for a C it is not built for."""
+    after the kernel asks for the largest shared-memory carveout. (0,
+    bytes) for a block that does not fit."""
     import ctypes
     from point_slam_tpu_torch.ops import _build
     _, code, _, c = _kernel_of(planes)
@@ -613,9 +641,12 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     probe rows itself (the (R, P*C) candidate block is never materialised),
     brings the next ray's rows by cp.async while it selects for this one,
     compacts each ray's points once and keys only those, and keeps each
-    sample's top-8 sorted in registers. On the card every plane must be
-    contiguous and 16-byte aligned with C in RAY_TOPK_WIDTHS; anything else
-    raises, and nothing falls back to the plain version.
+    sample's top-8 sorted in registers. It takes every row width C the
+    JAX package does: 32 and 64 are built as constants, any other C runs
+    the generic instantiation. On the card every plane must be contiguous
+    and 16-byte aligned, and one block must fit in the shared memory
+    (``check_ray_topk_shape``); anything else raises, and nothing falls
+    back to the plain version.
     """
     if q.device.type == "cpu":
         return ray_topk_reference(probes, planes, q, k, lane_mask)
@@ -641,9 +672,9 @@ def ray_topk(probes: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     if any(pl.shape != planes[0].shape for pl in planes):
         raise ValueError(f"ray_topk: plane shapes "
                          f"{[tuple(pl.shape) for pl in planes]} differ")
-    if c not in RAY_TOPK_WIDTHS or width % c:
-        raise ValueError(f"ray_topk: the kernels are built for C in "
-                         f"{RAY_TOPK_WIDTHS}, not C={c}")
+    if len(planes) == 1 and width % 2:
+        raise ValueError(f"ray_topk: fused rows of odd width {width}")
+    check_ray_topk_shape(name, p, c, ns)
     if any(pl.data_ptr() % 16 for pl in planes):
         raise ValueError("ray_topk: every plane must be 16-byte aligned")
     if p * width > lane_mask + 1 or lane_mask >= 1 << 23:

@@ -7,6 +7,12 @@ rows of the interleaved table; three separate planes X, Y, Z (sentinel
 probes' X at +inf); the keys-only block top-k (the Pallas
 ``_topk_kernel``, mask 4095); then the winners' coordinates and ids from
 an epilogue over their lanes, and exact d^2 from the coordinates.
+
+The stages of ``profiling/knn_pallas.py:191-220``, each the chain up to
+and including its step, as ``knn_pallas_stages`` times them: ``s_probes``
+(the ray probes), ``s_gather`` (+ the (R, P, C, 4) row gather),
+``s_unpack`` (+ the X, Y, Z planes), ``s_topk`` (+ P1 through
+``block_topk``); ``knn_rays`` (v3) is the full chain.
 """
 
 from __future__ import annotations
@@ -48,6 +54,24 @@ def ray_probes(q: torch.Tensor, cell_size, table_size: int,
     return probes[:, :m_probe]
 
 
+def s_probes(table: torch.Tensor, q: torch.Tensor, cell_size,
+             p: int = P) -> torch.Tensor:
+    """Stage 1: the (R, P) ray probes."""
+    return ray_probes(q, cell_size, table.shape[0] - 1, p)
+
+
+def _gather(table, probes):
+    table_size = table.shape[0] - 1
+    return table[torch.clamp(probes, 0, table_size - 1).long()]
+
+
+def s_gather(table: torch.Tensor, q: torch.Tensor, cell_size,
+             p: int = P) -> torch.Tensor:
+    """Stage 2: + the (R, P, C, 4) rows of the interleaved table;
+    sentinel probes read row TABLE-1, as the script clips."""
+    return _gather(table, s_probes(table, q, cell_size, p))
+
+
 def candidates(table: torch.Tensor, q: torch.Tensor, cell_size,
                p: int = P):
     """(probes, X, Y, Z, ids), each plane (R, P*C) contiguous: the
@@ -57,12 +81,28 @@ def candidates(table: torch.Tensor, q: torch.Tensor, cell_size,
     r = q.shape[0]
     table_size, c = table.shape[0] - 1, table.shape[1]
     probes = ray_probes(q, cell_size, table_size, p)
-    blocks = table[torch.clamp(probes, 0, table_size - 1).long()]
+    blocks = _gather(table, probes)
     bad = (probes >= table_size)[:, :, None]
     x = torch.where(bad, torch.inf, blocks[..., 0]).reshape(r, p * c)
     y, z, ids = (blocks[..., a].reshape(r, p * c).contiguous()
                  for a in (1, 2, 3))
     return probes, x, y, z, ids
+
+
+def s_unpack(table: torch.Tensor, q: torch.Tensor, cell_size,
+             p: int = P):
+    """Stage 3: + the X, Y, Z planes (R, P*C), X at +inf on sentinel
+    probes."""
+    return candidates(table, q, cell_size, p)[1:4]
+
+
+def s_topk(table: torch.Tensor, q: torch.Tensor, cell_size,
+           p: int = P) -> torch.Tensor:
+    """Stage 4: + the keys-only block top-k (P1), (R, ns*k) keys."""
+    r, c = q.shape[0], table.shape[1]
+    x, y, z = s_unpack(table, q, cell_size, p)
+    return block_topk(layout_views((x, y, z), "planes", r, p, c, 3),
+                      q.unbind(-1), K, LANE_MASK)[0]
 
 
 def block(table, q, cell_size, p: int = P) -> Block:

@@ -9,6 +9,12 @@ taken in the kernel (the Pallas ``_kernel``, mask 8191).
 v5: the box compacted to P2=40 slots, valid buckets first, by a
 cumsum/scatter (``box_probes_compact``); the same block top-k (the Pallas
 ``_kernel2``), which runs its 2560 lanes under the script's mask 8191.
+
+The stages of ``profiling/knn_pallas2.py:177-190`` and ``:289-295``, as
+``knn_pallas2_v5`` times them: ``s_probes`` (the box probes), ``s_gather``
+(+ the (R, 64, C, 4) rows), ``s_trans`` (+ the [X|Y|Z|ID] row);
+``s5_probes`` (the compacted probes), ``s5_gather`` (+ the (R, 40, C, 4)
+rows); ``knn_rays`` (v4) and ``knn_rays_v5`` are the full chains.
 """
 
 from __future__ import annotations
@@ -73,15 +79,45 @@ def box_probes_compact(q: torch.Tensor, cell_size, table_size: int,
     return probes[:, :p2]
 
 
+def _transpose(blocks: torch.Tensor) -> torch.Tensor:
+    """(R, P, C, 4) rows -> the [X|Y|Z|ID] row (R, 4*P*C)."""
+    r, p, c, _ = blocks.shape
+    return blocks.permute(0, 3, 1, 2).reshape(r, 4 * p * c)
+
+
 def _row_block(table: torch.Tensor, probes: torch.Tensor, q: torch.Tensor,
                lane_mask: int) -> Block:
     """Gather, transpose to the [X|Y|Z|ID] row (R, 4*P*C), views."""
     r, p = probes.shape
     c = table.shape[1]
-    blocks = table[probes.long()]                            # (R,P,C,4)
-    cand = blocks.permute(0, 3, 1, 2).reshape(r, 4 * p * c)
+    cand = _transpose(table[probes.long()])
     return Block(layout_views(cand, "row", r, p, c, 4), q.unbind(-1),
                  lane_mask)
+
+
+def s_probes(table: torch.Tensor, q: torch.Tensor, cell_size):
+    """v4 stage 1: the (R, 64) box probes."""
+    return box_probes(q, cell_size, table.shape[0] - 1)
+
+
+def s_gather(table: torch.Tensor, q: torch.Tensor, cell_size):
+    """v4 stage 2: + the (R, 64, C, 4) rows."""
+    return table[s_probes(table, q, cell_size).long()]
+
+
+def s_trans(table: torch.Tensor, q: torch.Tensor, cell_size):
+    """v4 stage 3: + the transpose to the [X|Y|Z|ID] row (R, 4*64*C)."""
+    return _transpose(s_gather(table, q, cell_size))
+
+
+def s5_probes(table: torch.Tensor, q: torch.Tensor, cell_size):
+    """v5 stage 1: the (R, 40) compacted box probes."""
+    return box_probes_compact(q, cell_size, table.shape[0] - 1)
+
+
+def s5_gather(table: torch.Tensor, q: torch.Tensor, cell_size):
+    """v5 stage 2: + the (R, 40, C, 4) rows."""
+    return table[s5_probes(table, q, cell_size).long()]
 
 
 def block_v4(table, q, cell_size) -> Block:

@@ -185,13 +185,6 @@ def _random_rays(rand: Data) -> List[Variant]:
     ]
 
 
-def _fmt(ms: Optional[float], dev_ms: Optional[float]) -> str:
-    if ms is None:
-        return "not measured (cpu)"
-    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-    return f"{ms:.4f} ms (device {dev})"
-
-
 def run(device, points: Optional[int] = None, rays: Optional[int] = None,
         iters: int = 10, data: Optional[List[Data]] = None) -> List[dict]:
     """Run every variant once for the match, time it on a card, and print
@@ -226,9 +219,10 @@ def run(device, points: Optional[int] = None, rays: Optional[int] = None,
                "kernel_device_ms": kern_dev, "match_pct": match,
                "launches": bt.LAUNCHES["block_topk"] - before}
         rows.append(row)
-        kern = "-" if kernel is None else _fmt(kern_ms, kern_dev)
+        kern = "-" if kernel is None else S.shown_ms(kern_ms, kern_dev)
         print(f"[study] {v.name:<19} {v.body:<7} {v.scene:<13} "
-              f"R={row['rays']} P={v.p}: pipeline {_fmt(pipe_ms, pipe_dev)}"
+              f"R={row['rays']} P={v.p}: pipeline "
+              f"{S.shown_ms(pipe_ms, pipe_dev)}"
               f", kernel {kern}, dist-set match vs v0 {match:.4f}%, "
               f"block_topk launches {row['launches']}", flush=True)
     return rows

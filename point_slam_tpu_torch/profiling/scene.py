@@ -178,6 +178,77 @@ def device_ms(fn, iters: int = 10) -> Optional[float]:
     return us / 1e3 / iters if us > 0 else None
 
 
+def sheet(device, n_points: Optional[int] = None, rays: Optional[int] = None,
+          cap: int = 1 << 19, c: int = C, build=None, seed: int = 0):
+    """The sine-sheet scene (``sine_sheet``) on ``device``: (scene, points
+    (CAP, 3), q (R, NS, 3), its cell table). ``build``: the table's
+    builder (ops/knn.py's build_grid_index, build_packed_grid_index or
+    build_fused_grid_index; default the f32 planes), at TABLE x ``c``."""
+    from point_slam_tpu_torch.ops import knn as tk
+    size = {"cap": cap}
+    if n_points is not None:
+        size["n_points"] = n_points
+    if rays is not None:
+        size["rays"] = rays
+    sc = sine_sheet(seed, **size)
+    pts = torch.from_numpy(sc.points).to(device)
+    q = torch.from_numpy(sc.q).to(device)
+    index = (build or tk.build_grid_index)(pts, sc.n_points, sc.cell, TABLE,
+                                           c)
+    return sc, pts, q, index
+
+
+def jitter(q: torch.Tensor, g: torch.Generator,
+           scale: float = 0.002) -> torch.Tensor:
+    """The scripts' per-iteration query jitter: q + scale * N(0, 1)."""
+    return q + scale * torch.randn(q.shape, generator=g, device=q.device)
+
+
+def stage_times(fn, device, iters: int = 20):
+    """(median CUDA-event ms, device ms) of fn() on a card (device ms: the
+    profiler's summed kernel time a call, up to three windows; None if
+    none recorded device activity). On the host fn runs once and nothing
+    is timed: (None, None)."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return None, None
+    ms = cuda_ms(fn, iters)
+    for _ in range(3):
+        dev_ms = device_ms(fn, iters)
+        if dev_ms is not None:
+            return ms, dev_ms
+    return ms, None
+
+
+def shown_ms(ms: Optional[float], dev_ms: Optional[float]) -> str:
+    if ms is None:
+        return "not measured (cpu)"
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    return f"{ms:.4f} ms (device {dev})"
+
+
+def launch_counts() -> dict:
+    """The CUDA kernels' launch counts (ops/knn.py's and
+    ops/block_topk.py's), by kernel."""
+    from point_slam_tpu_torch.ops import block_topk, knn
+    return {**knn.LAUNCHES, **block_topk.LAUNCHES}
+
+
+def run_stages(tag: str, stages, device, iters: int = 20) -> dict:
+    """Time each (name, fn) of ``stages`` with ``stage_times`` and print a
+    line each; returns {name: {"ms": .., "device_ms": .., "launches":
+    {kernel: launches of the stage's runs}}}."""
+    rows = {}
+    for name, fn in stages:
+        before = launch_counts()
+        ms, dev_ms = stage_times(fn, device, iters)
+        launches = {k: v - before[k] for k, v in launch_counts().items()
+                    if v != before[k]}
+        rows[name] = {"ms": ms, "device_ms": dev_ms, "launches": launches}
+        print(f"[{tag}] {name:<24} {shown_ms(ms, dev_ms)}", flush=True)
+    return rows
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     return subprocess.run(

@@ -11,6 +11,9 @@ steady-state cloud, the keyframe window, the device switch and the timers.
   sin(3x) over a 5 m square), or one on frame 0's own surfaces
   (``surface_cloud``), with its cell table.
 * ``frame0_window``: the keyframe window holding frame 0 in slot 0.
+* ``color_config`` / ``densified_frame0``: the colour probes' workload
+  (``profiling/color_*.py``): frame 0 of the synthetic room densified
+  once over the f32-plane cell table.
 * ``device``: ``cuda`` unless ``--device cpu`` is given; raises without
   CUDA. ``wall_ms`` / ``busy_ms``: CUDA-event and profiler times, None on
   the host (nothing is timed there).
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +71,103 @@ def bench_config(n_frames: int, scene: str = "room.yaml",
     cfg["verbose"] = False
     cfg["data"]["output"] = os.path.join(OUTPUT, "profiling_torch")
     return cfg
+
+
+def color_config(small: bool = False):
+    """The colour probes' config (``profiling/color_debug.py:19-27``):
+    configs/Synthetic/room.yaml over 2 frames at 240x320 (focal 200),
+    mapping 2000 rays and 4000 densification rays, no near-cloud sampling;
+    ``small``: a 48x64 camera (focal 40), 200 and 400 rays, CAP 2^13 and
+    a 2^14-bucket cell table."""
+    from point_slam_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(HERE, "configs", "Synthetic", "room.yaml"),
+                      os.path.join(HERE, "configs", "point_slam.yaml"))
+    cfg["synthetic"].update({"n_frames": 2, "angular_step": 0.01})
+    if small:
+        cfg["cam"].update({"H": 48, "W": 64, "fx": 40.0, "fy": 40.0,
+                           "cx": 31.5, "cy": 23.5})
+        cfg["mapping"].update({"pixels": 200, "pixels_adding": 400})
+        cfg["cuda"].update({"point_capacity_init": 1 << 13,
+                            "grid_table_size": 1 << 14})
+    else:
+        cfg["cam"].update({"H": 240, "W": 320, "fx": 200.0, "fy": 200.0,
+                           "cx": 159.5, "cy": 119.5})
+        cfg["mapping"].update({"pixels": 2000, "pixels_adding": 4000})
+    cfg["rendering"]["sample_near_pcl"] = False
+    cfg["verbose"] = False
+    cfg["data"]["output"] = os.path.join(OUTPUT, "profiling_torch")
+    return cfg
+
+
+class Frame0(NamedTuple):
+    """Frame 0 densified once: the mapper (its cloud, cell table and
+    decoders) and the frame's device tensors."""
+    mapper: object
+    color: torch.Tensor          # (H, W, 3)
+    depth: torch.Tensor          # (H, W)
+    c2w: torch.Tensor            # (4, 4)
+    r_query: torch.Tensor        # (H, W)
+
+
+def densified_frame0(cfg, dev, n_rays: int, n_add: int = 3, seed: int = 0,
+                     draws=None, decoders=None) -> Frame0:
+    """What the colour probes share (``profiling/color_debug.py:19-41``):
+    the mapper on ``cfg`` (decoders from ``seed``, or ``decoders``),
+    frame 0's radius maps, one densification of the mapper's add_max
+    candidate rays (the first ``n_rays`` valid, ``n_add`` points along
+    each accepted ray at depth x [0.98, 1.02]) and the cell table rebuilt
+    over the cloud as f32 planes, as the scripts build it. ``draws``:
+    (i, j, (geo, col)) the candidates' pixels and the new points'
+    features (a test hands both packages the same); drawn from a
+    generator seeded with ``seed`` + 1 otherwise."""
+    from point_slam_tpu_torch import mapper as M
+    mapper = make_mapper(cfg, dev, seed)
+    if decoders is not None:
+        mapper.decoders = decoders
+    color, depth, c2w = frame(cfg, 0)
+    cd, dd, cw = (torch.as_tensor(a, device=dev) for a in (color, depth, c2w))
+    r_add, r_query = mapper.radius_maps(cd)[:2]
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    i, j, feats = draws if draws is not None else (None, None, None)
+    o, d, dep, col, ra, valid = M.sample_add_rays(mapper.ms, cw, cd, dd,
+                                                  r_add, n_rays, g, i, j)
+    mapper._ensure_capacity(o.shape[0] * n_add)
+    mapper.cloud, _ = pc.add_points(mapper.cloud, mapper.index, o, d, dep,
+                                    col, valid, ra, 0.98, 1.02, n_add=n_add,
+                                    generator=g, feats=feats)
+    mapper.n_points_host = int(mapper.cloud.n_points)
+    mapper.index = pc.build_index(mapper.cloud, mapper.cell_size,
+                                  mapper.table_size, mapper.max_per_cell)
+    return Frame0(mapper, cd, dd, cw, r_query)
+
+
+def pixel_batch(f0: Frame0, i: torch.Tensor, j: torch.Tensor):
+    """(gt_depth, gt_color, r_query, rays_o, rays_d) of frame 0 at the
+    pixels (i columns, j rows)."""
+    from point_slam_tpu_torch.common import camera, sampling
+    ms = f0.mapper.ms
+    ro, rd = camera.rays_from_uv(i, j, f0.c2w, ms.fx, ms.fy, ms.cx, ms.cy)
+    return (sampling.gather_pixels(f0.depth, i, j),
+            sampling.gather_pixels(f0.color, i, j),
+            sampling.gather_pixels(f0.r_query, i, j), ro, rd)
+
+
+def pixel_draws(f0: Frame0, n: int, seed: int, fill: bool = False):
+    """draws(t) -> {"i", "j"[, "fill"]}: n uniform pixels of the frame
+    (and a render's random-fill vectors) for step t, from one generator
+    seeded with ``seed``."""
+    from point_slam_tpu_torch import renderer as R
+    from point_slam_tpu_torch.common import sampling
+    ms, dev = f0.mapper.ms, f0.depth.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draws(t: int):
+        i, j = sampling.sample_pixels_uniform(0, ms.h, 0, ms.w, n, g, dev)
+        out = {"i": i, "j": j}
+        if fill:
+            out["fill"] = R.draw_fill(g, dev)
+        return out
+    return draws
 
 
 CLOUDS = ("sheet", "surface")

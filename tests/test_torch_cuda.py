@@ -76,18 +76,20 @@ def query_of(kernel, q, index):
 @pytest.mark.parametrize("r", [1, 1500, 5000, 20000])
 @pytest.mark.parametrize("cloud", ["dense", "sparse", "full"])
 @pytest.mark.parametrize("p", [27, 36])
-@pytest.mark.parametrize("c", [64, 32])
+@pytest.mark.parametrize("c", [64, 32, 4, 16, 48, 96])
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_ray_topk_kernel_equals_plain_on_cuda(kernel, c, p, cloud, r):
-    """Each layout at both built widths and two probe budgets: keys and ids
-    EQUAL to the plain version (tolerance 0; ids as int32 bit patterns,
-    since K3's winners past the finite candidates read coordinate bits),
-    and the launch is counted. The sparse cloud leaves most samples with
-    fewer than k points, so empty lanes (and K3's id lanes) win; "full"
-    fills each ray's probe 0, so that bucket has no empty lane (with
-    C >= 2k a sample that sees a full probe 0 has k points, so no empty
-    lane wins there); R=20000 puts several rays on each persistent
-    block."""
+    """Each layout at both built widths, at four widths of the generic
+    instantiation (4: a row of one 16-byte chunk and C < 2k; 16; 48 and
+    96, not powers of two) and two probe budgets: keys and ids EQUAL to
+    the plain version (tolerance 0; ids as int32 bit patterns, since K3's
+    winners past the finite candidates read coordinate bits), and the
+    launch is counted. The sparse cloud leaves most samples with fewer
+    than k points, so empty lanes (and K3's id lanes) win; "full" fills
+    each ray's probe 0, so that bucket has no empty lane (with C >= 2k a
+    sample that sees a full probe 0 has k points, so no empty lane wins
+    there; with C = 4 the +inf winners lie past probe 0); R=20000 puts
+    several rays on each persistent block."""
     dev = cuda_or_skip()
     if cloud == "full":
         pts, n_pts, q = full_cell_cloud(15, r)
@@ -111,7 +113,7 @@ def test_ray_topk_kernel_equals_plain_on_cuda(kernel, c, p, cloud, r):
     short = (keys >= 0x7F800000).float().mean()
     if cloud == "full":
         assert (index.counts[probes[:, 0].long()] > c).all()
-        assert short == 0
+        assert short == 0 if c >= 16 else short > 0
     elif r > 1:        # one ray's five samples say little of the cloud
         assert short > 0.3 if cloud == "sparse" else short < 0.1
 
@@ -131,18 +133,37 @@ def planes_of(kernel, c, dev, rows=9, view=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
-def test_fused_ray_topk_refuses_unbuilt_widths_on_cuda(kernel):
-    """A CUDA plane whose C the kernels are not built for raises, naming
-    the widths they have; nothing falls back to the plain version."""
+def test_ray_topk_refuses_blocks_past_shared_memory_on_cuda(kernel):
+    """Every C whose block fits launches (C = 128 at P = 27 EQUAL to the
+    plain version, its shared memory the one check_ray_topk_shape counts);
+    a block past the card's shared memory (C = 128 at P = 64; K2, which
+    compacts a lane a point, at C = 160) raises naming the bytes, before
+    any launch; nothing falls back to the plain version."""
     dev = cuda_or_skip()
-    probes = torch.zeros((4, 27), dtype=torch.int32, device=dev)
+    name = NAME[kernel]
+    pts, n_pts, q = ray_cloud(16, n_rays=500)
+    index = BUILD[kernel](pts.to(dev), n_pts, 0.16, 1 << 14, 128)
+    q = q.to(dev)
+    probes, _ = tk._box_probes(q, 0.16, index.table_size, 27)
+    planes = tk.index_planes(index)
+    qk = query_of(kernel, q, index)
+    mask = tk._lane_mask(27 * planes[0].shape[1])
+    keys, ids = tk.ray_topk(probes, planes, qk, 8, mask)
+    rkeys, rids = tk.ray_topk_reference(probes, planes, qk, 8, mask)
+    assert torch.equal(keys, rkeys)
+    assert torch.equal(ids.view(torch.int32), rids.view(torch.int32))
+    per_sm, smem = tk.ray_topk_occupancy(planes, 27, 5)
+    assert per_sm >= 1 and smem == tk.ray_topk_smem_bytes(name, 27, 128, 5)
+    c_out = 160 if kernel == "K2" else 128
+    probes = torch.zeros((4, 64), dtype=torch.int32, device=dev)
     q = torch.zeros((4, 5, 3), device=dev)
     before = dict(tk.LAUNCHES)
-    for c in (16, 48, 96):
-        planes = planes_of(kernel, c, dev)
-        with pytest.raises(ValueError, match=r"C in \(32, 64\), not C="):
-            tk.ray_topk(probes, planes, q, 8,
-                        tk._lane_mask(27 * planes[0].shape[1]))
+    planes = planes_of(kernel, c_out, dev)
+    need = tk.ray_topk_smem_bytes(name, 64, c_out, 5)
+    with pytest.raises(ValueError, match=f"needs {need} bytes"):
+        tk.ray_topk(probes, planes, q, 8,
+                    tk._lane_mask(64 * planes[0].shape[1]))
+    assert tk.ray_topk_occupancy(planes, 64, 5) == (0, need)
     assert tk.LAUNCHES == before
 
 

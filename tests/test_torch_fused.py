@@ -63,12 +63,12 @@ def ray_queries(pts, n_pts, rng, n_rays, ns=5):
             + dirs[:, None, :] * z[..., None]).astype(np.float32)
 
 
-def fused_indexes(pts, n_pts, cell=0.2, table=1 << 12):
+def fused_indexes(pts, n_pts, cell=0.2, table=1 << 12, c=64):
     return (jk.build_fused_grid_index(jnp.asarray(pts), jnp.asarray(n_pts),
                                       jnp.asarray(cell), table_size=table,
-                                      max_per_cell=64),
+                                      max_per_cell=c),
             tk.build_fused_grid_index(t(pts), n_pts, cell, table_size=table,
-                                      max_per_cell=64))
+                                      max_per_cell=c))
 
 
 def assert_fused_equal(ji, ti):
@@ -143,16 +143,19 @@ def jax_fused_kernel(ji, q, p_ray=27, k=8, blk=32):
     return probes, qm, lane_mask, keys, ids
 
 
+@pytest.mark.parametrize("c", [64, 48, 96])
 @pytest.mark.parametrize("n_pts", [3000, 150], ids=["dense", "sparse"])
-def test_ray_topk_reference_fused_matches_the_jax_kernel(n_pts):
+def test_ray_topk_reference_fused_matches_the_jax_kernel(n_pts, c):
     """Keys equal; ids equal as int32 bit patterns, including the winners
     of samples with fewer than k finite candidates (the sparse cloud),
-    whose ids come from id lanes' +C neighbours."""
+    whose ids come from id lanes' +C neighbours; at C = 64 and at the
+    generic kernel's widths 48 and 96 (96 the JAX package's default)."""
     pts, rng = make_cloud(n_pts, 4096, seed=5)
-    ji, ti = fused_indexes(pts, n_pts)
+    ji, ti = fused_indexes(pts, n_pts, c=c)
     q = ray_queries(pts, n_pts, rng, 64)
     probes, qm, lane_mask, jkeys, jids = jax_fused_kernel(ji, jnp.asarray(q))
-    assert lane_mask == 4095
+    assert lane_mask == tk._lane_mask(27 * 2 * c) == (8191 if c == 96
+                                                     else 4095)
     keys, ids = tk.ray_topk_reference(t(probes), (ti.plane,), t(qm), 8,
                                       lane_mask)
     np.testing.assert_array_equal(n(keys), np.asarray(jkeys))
@@ -169,10 +172,14 @@ def test_ray_topk_reference_fused_matches_the_jax_kernel(n_pts):
 
 
 def test_fused_ray_topk_widths_and_the_cpu_path():
-    """The kernels are built for C = 32 and 64 (a CUDA plane of another
-    width raises, tests/test_torch_cuda.py); the CPU path, the plain
-    version, takes any C."""
-    assert tk.RAY_TOPK_WIDTHS == (32, 64)
+    """The kernels take every C whose block fits in the shared memory
+    (C = 16 here; on the card a block past it raises,
+    tests/test_torch_cuda.py); the CPU path, the plain version, takes any
+    C and counts no launch."""
+    assert not hasattr(tk, "RAY_TOPK_WIDTHS")
+    assert tk.check_ray_topk_shape("ray_topk_fused", 27, 16, 5) == (
+        tk.ray_topk_smem_bytes("ray_topk_fused", 27, 16, 5))
+    before = dict(tk.LAUNCHES)
     pts, rng = make_cloud(400, 1024, seed=8)
     index = tk.build_fused_grid_index(t(pts), 400, 0.2, table_size=1 << 10,
                                       max_per_cell=16)
@@ -182,6 +189,7 @@ def test_fused_ray_topk_widths_and_the_cpu_path():
     got = tk.ray_topk(probes, (index.plane,), qm, 8, 1023)
     want = tk.ray_topk_reference(probes, (index.plane,), qm, 8, 1023)
     assert torch.equal(got[0], want[0]) and got[0].shape == (16, 40)
+    assert tk.LAUNCHES == before
 
 
 def test_ray_grid_knn_over_the_fused_index_matches_jax():

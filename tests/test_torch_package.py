@@ -339,7 +339,10 @@ PROFILING_TOOLS = (
     "knn_ray", "knn_study", "quality_gate", "track_quality",
     "recon_validate", "soak_eval", "soak_summary", "soak_runner", "bf16_ab",
     "geo_decoder_ab", "mlp_precision_ab", "probes_ab", "geo_fwd_split",
-    "interp_inspect")
+    "interp_inspect", "knn_pallas_stages", "knn_pallas2_v5", "knn_pallas5",
+    "knn_chain", "knn_split", "knn_prod_stages", "knn_packed_ab",
+    "profile_gather", "color_direct", "color_ablate", "color_train_iso",
+    "color_debug", "color_blowup", "color_converge")
 
 
 def test_auto_knobs_resolve_by_device():

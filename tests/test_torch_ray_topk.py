@@ -32,9 +32,15 @@ R, NS, K, BLK = 64, 5, 8, 32
 # case -> (points, table size, C, probes a ray); "full": 12 points in one
 # cell of a C=4 table, so probe 0 of the rays there holds C points and the
 # +inf winners lie past it; "sentinel": 36 probes over a 64-bucket table,
-# so duplicate and out-of-box probes point at the sentinel row
+# so duplicate and out-of-box probes point at the sentinel row; the _c48
+# and _c96 cases are the widths the kernels' generic instantiation takes
+# (C not a power of two; 96 is the JAX package's default max_per_cell)
 CASES = {"dense": (6000, 1 << 12, 64, 27), "sparse": (150, 1 << 12, 64, 27),
-         "full": (40, 1 << 12, 4, 27), "sentinel": (5, 1 << 6, 64, 36)}
+         "full": (40, 1 << 12, 4, 27), "sentinel": (5, 1 << 6, 64, 36),
+         "dense_c48": (6000, 1 << 12, 48, 27),
+         "sparse_c48": (150, 1 << 12, 48, 27),
+         "dense_c96": (6000, 1 << 12, 96, 27),
+         "sparse_c96": (150, 1 << 12, 96, 27)}
 
 
 def dyadic(x):
@@ -126,7 +132,7 @@ def test_ray_topk_reference_matches_the_jax_kernels(layout, case):
     keys = n(keys)
     short = keys >= 0x7F800000
     win = keys & lane_mask
-    if case == "dense":
+    if case.startswith("dense"):
         assert short.mean() < 0.05, short.mean()
     else:
         assert short.mean() > 0.3, short.mean()
@@ -137,3 +143,37 @@ def test_ray_topk_reference_matches_the_jax_kernels(layout, case):
         assert (win[short] >= c).all() and short.any()
     if case == "sentinel":
         assert (n(probes) == table).any(axis=1).all()
+
+
+@pytest.mark.parametrize("name", list(tk.LAUNCHES))
+def test_ray_topk_shape_check_takes_every_width_that_fits(name):
+    """The wrapper's only shape refusal is a block past the card's shared
+    memory: C in {4, 16, 48, 96} fits at every P <= 64 (ns = 5), C = 128
+    at P = 27 (56 for K1 and K3; K2, which compacts a lane a point, at
+    64), and C = 128 at P = 64 (K2: C = 160) raises with the bytes it
+    needs against the 232,448 available. The byte count is
+    csrc/ray_topk.cu's block_words (phase A prints the launcher's own:
+    55,756 for K1 and K3 and 48,844 for K2 at P = 27, C = 64; 74,296 for
+    K1 at P = 36)."""
+    assert tk.ray_topk_smem_bytes(name, 27, 64, 5) == (
+        48_844 if name == "ray_topk_planes" else 55_756)
+    if name == "ray_topk_packed":
+        assert tk.ray_topk_smem_bytes(name, 36, 64, 5) == 74_296
+    for c in (4, 16, 48, 96):
+        for p in (1, 8, 27, 36, 48, 64):
+            smem = tk.check_ray_topk_shape(name, p, c, 5)
+            assert smem == tk.ray_topk_smem_bytes(name, p, c, 5)
+            assert smem <= tk.RAY_TOPK_MAX_SMEM
+    assert tk.check_ray_topk_shape(name, 27, 128, 5) < tk.RAY_TOPK_MAX_SMEM
+    if name != "ray_topk_planes":
+        assert tk.check_ray_topk_shape(name, 56, 128, 5) < 232_448
+    else:
+        assert tk.check_ray_topk_shape(name, 64, 128, 5) == 230_280
+    c_out = 160 if name == "ray_topk_planes" else 128
+    need = tk.ray_topk_smem_bytes(name, 64, c_out, 5)
+    assert need > 232_448
+    with pytest.raises(ValueError, match=f"needs {need} bytes of shared "
+                       r"memory; the card gives a block 232448"):
+        tk.check_ray_topk_shape(name, 64, c_out, 5)
+    with pytest.raises(ValueError, match="C >= 1"):
+        tk.check_ray_topk_shape(name, 27, 0, 5)
