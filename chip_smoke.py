@@ -110,9 +110,10 @@ non-zero with no result line otherwise. In one pass it:
    unchanged under it; then G2's run again with 'default': ATE without
    alignment under 2 cm, frames/s;
 9. phase H: data parallelism (``point_slam_tpu_torch/parallel/dist.py``).
-   H1 runs phase B's configuration over frames 0-6 (iters_first cut to
-   H1_ITERS_FIRST) at ``data_parallel`` 2: two processes sharing the one
-   card in a gloo group over a FileStore (NCCL refuses two ranks on one
+   H1 runs phase B's configuration over frames 0-5 (depth cuts: frame 6
+   dropped, frame 5 still mapped; iters_first cut to H1_ITERS_FIRST) at
+   ``data_parallel`` 2: two processes sharing the one card in a gloo
+   group over a FileStore (NCCL refuses two ranks on one
    device), against the same configuration in one process without a
    group, both under deterministic mode. Checks: K1 ran in tracking and
    mapping on both ranks, the ranks' clouds, decoders and poses are
@@ -123,7 +124,7 @@ non-zero with no result line otherwise. In one pass it:
    through Adam), ATE without alignment under 2 cm; prints both runs'
    frames/s (W=2 shares the card's SMs: not a scaling result) and the
    bytes all-reduced a mapping iteration. H2
-   runs phase C's configuration over frames 0-4 (colour refinement off)
+   runs phase C's configuration over frames 0-2 (colour refinement off)
    at ``data_parallel`` 2: K3 and K4 (once a mapping iteration) on both
    ranks, bit-equal replicas, ATE without alignment under 2 cm. H3, in a
    process of its own under deterministic mode: phase B's configuration
@@ -187,8 +188,29 @@ non-zero with no result line otherwise. In one pass it:
    finite, no NaN. Prints each cut as ``[K] cut:`` and the phase's wall; K1's and
    K2's launches go into the kernels line (K0's comparisons do not), and
    K1-K3's records carry ``widths``, the C held EQUAL;
-13. prints one JSON line of the kernels, the card again, and last the line
-   {"ok": true, "device": {...}}.
+13. phase L: the last profiling modules (``point_slam_tpu_torch/
+   profiling``), alone on the card. L1 runs dp_scaling at its toy shapes
+   (96x128, CAP 2^15, 2048 rays) at W = 1, 2, 4 and 8 and at bench.py's
+   shapes (CAP 2^17, 5000 rays) at W = 1 and 8, each world size a gloo
+   group of its own sharing the card (one set of processes,
+   ``parallel/dist.py``'s ``Ranks``, serves all of them): the collective
+   audit
+   passes at every W (one all-reduce an iteration carrying the packed
+   leaf's live-prefix gradient, no other collective touching the packed
+   rows, the bytes an iteration equal to (n_rows*72 + n_params + 3)*4,
+   the same formula at every W), the ranks' replicas are bit-equal, K1
+   ran on every rank and the per-rank matmul FLOP ratio is within 10% of
+   1/W; prints the bytes beside the JAX rule's CAP*72*4 (not a
+   measurement). L2 runs cond_dup_probe at bench shapes: each stage's
+   trace must hold the feature gather, its scatter (the signature's rows)
+   and K1. L3 runs crash_bisect at CAP 2^19 in a process of its own (every
+   stage OK with a finite v, map_optimize at 10 and L_N+10 iterations in
+   both stages, cold and steady) and crash_bisect2 at L_ITERS_FIRST
+   (finite loss, points).
+   Prints the phase's wall; every rank's K1 launches go into the kernels
+   line;
+14. prints the whole smoke's wall, one JSON line of the kernels, the card
+   again, and last the line {"ok": true, "device": {...}}.
 
 Weights are random (seeded) except the pretrained geometry decoder in
 pretrained/middle_fine.npz; the data is the procedural synthetic room
@@ -259,8 +281,8 @@ G3_FRAMES = 5
 G_ITERS_FIRST = 500         # G2's and G4's depth cut (phase B's: 1500)
 G4_POINTS = 25000           # a mapping batch: 5000 rays x 5 samples
 G4_REL = 2e-2               # TF32 against IEEE f32, relative to max |out|
-# phase H: data parallelism. H1 (phase B's configuration over frames 0-6)
-# and H2 (phase C's over frames 0-4) at data_parallel 2: two processes on
+# phase H: data parallelism. H1 (phase B's configuration over frames 0-5)
+# and H2 (phase C's over frames 0-2) at data_parallel 2: two processes on
 # the one card in a gloo group (NCCL refuses two ranks on one device),
 # under deterministic mode; H1 also in one process without a group. At
 # world size 2 each render and MLP runs at half the rays (other GEMM
@@ -274,9 +296,10 @@ G4_REL = 2e-2               # TF32 against IEEE f32, relative to max |out|
 # prints the share after H1_SNAPSHOTS iterations. H3 in a process of its own: an NCCL group of one over
 # frames 0-2, the determinism harness, pretrain_geo
 H_WORLD = 2
-H1_FRAMES = 7
+H1_FRAMES = 6               # H1's depth cut (phase B's frames 0-6): frame
+                            # 5 is still mapped
 H1_ITERS_FIRST = 300        # H1's depth cut (phase B's: 1500)
-H2_FRAMES = 5
+H2_FRAMES = 3               # H2's depth cut: frames 0 and 2 mapped
 H3_FRAMES = 3
 H3_ITERS_FIRST = 300        # H3's depth cut (phase B's: 1500)
 H_TIMEOUT_S = 600           # the groups' timeout and the ranks' join limit
@@ -338,6 +361,12 @@ K2_RUNS = (("color_direct", ["--steps", "20"]),
            ("color_blowup", ["--iters-first", "60", "--geo-iter-first",
                              "20"]),
            ("color_converge", ["--iters", "100", "--chunk", "25"]))
+
+# phase L: the data-parallel collective audit, the stage-gather probe and
+# the frame-0 mapping bisections (point_slam_tpu_torch/profiling)
+L_FLOPS_TOL = 0.10          # the per-rank FLOP ratio within 10% of 1/W
+L_N = 50                    # crash_bisect's N (the script's default)
+L_ITERS_FIRST = 300         # crash_bisect2's default
 
 KEY_FLOPS = 8               # a candidate-sample key: 3 sub, 3 mul, 2 add
 ADAM_FLOPS = 15             # one row-Adam element (row_adam.cu)
@@ -1707,8 +1736,8 @@ def snapshot_map0(store):
 
 
 def h_config(job, dp):
-    """H1: phase B's configuration over frames 0-6 (depth cut); H2: phase
-    C's over frames 0-4; at ``data_parallel`` dp."""
+    """H1: phase B's configuration over frames 0-5 (depth cut); H2: phase
+    C's over frames 0-2; at ``data_parallel`` dp."""
     if job == "H1":
         cfg = bench_config(H1_FRAMES)
         cfg["mapping"]["iters_first"] = H1_ITERS_FIRST
@@ -1757,64 +1786,28 @@ def h_run(dev, job, dp):
                                if "deterministic" in str(w.message)})}
 
 
-def h_rank(job, rank, world, tmp, device):
-    """One process of H1 or H2 on ``device`` (cuda:0 for every rank):
-    rank ``rank`` of a gloo group over a FileStore under ``tmp``, or with
-    ``world`` 0 a run without a group; saves its record there."""
-    import datetime
-    # deterministic cuBLAS needs its workspace fixed before the first
-    # CUDA call of the process
+def h_job(payload):
+    """One process of H1 or H2 (``payload``: the job, the device and the
+    world size, 0 for the run without a group): its record."""
+    # deterministic cuBLAS needs its workspace fixed before the process's
+    # first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", E_CUBLAS_WORKSPACE)
     import torch
-    import torch.distributed as dist
-    sys.path.insert(0, HERE)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", dev.index or 0)
-        torch.cuda.set_device(dev)
-    if world:
-        dist.init_process_group(
-            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
-            rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=H_TIMEOUT_S))
-    try:
-        torch.save(h_run(dev, job, max(world, 1)),
-                   os.path.join(tmp, f"rank{rank}.pt"))
-    finally:
-        if world:
-            dist.destroy_process_group()
+    return h_run(torch.device(payload["device"]), payload["job"],
+                 max(payload["world"], 1))
 
 
 def h_spawn(job, dev, world):
     """``job`` in ``world`` processes of a gloo group on ``dev`` (world 0:
-    one process without a group), joined within H_TIMEOUT_S (killed past
-    it); their records in rank order."""
-    import multiprocessing as mp
-    import shutil
-    import torch
-    tmp = os.path.join(HERE, "output", f"chip_smoke_{job}_w{world}")
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=h_rank, args=(job, r, world, tmp, str(dev)))
-             for r in range(max(world, 1))]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + H_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-    finally:
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join(10)
-    if hung or any(p.exitcode for p in procs):
-        raise AssertionError(f"[{job}] processes ended with "
-                             f"{[p.exitcode for p in procs]} (killed at "
-                             f"{H_TIMEOUT_S} s: {len(hung)})")
-    recs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(len(procs))]
+    one process without a group) through the port's launcher
+    (``parallel/dist.py``'s ``Ranks``), within H_TIMEOUT_S; their records
+    in rank order."""
+    from point_slam_tpu_torch.parallel import dist as pdist
+    n = max(world, 1)
+    root = os.path.join(HERE, "output", f"chip_smoke_{job}_w{world}")
+    with pdist.Ranks(n, dev, root, H_TIMEOUT_S) as ranks:
+        recs = ranks.run(h_job, {"job": job, "device": str(dev),
+                                 "world": world}, n, group=world > 0)
     for r, rec in enumerate(recs):
         if rec["refused"]:
             raise AssertionError(f"[{job}] process {r}: no deterministic "
@@ -1851,8 +1844,9 @@ def phase_h1(dev):
     import numpy as np
     t0 = time.perf_counter()
     print(f"[H] cut: H1 mapping.iters_first {ITERS_FIRST} -> "
-          f"{H1_ITERS_FIRST} (frames 0-{H1_FRAMES - 1} as phase B)",
-          flush=True)
+          f"{H1_ITERS_FIRST}", flush=True)
+    print(f"[H] cut: H1 phase B's frames 0-6 -> 0-{H1_FRAMES - 1} (frame "
+          f"{H1_FRAMES - 1} still mapped)", flush=True)
     one = h_spawn("H1", dev, 0)[0]
     ranks = h_spawn("H1", dev, H_WORLD)
     name = "ray_topk_packed"
@@ -1937,7 +1931,7 @@ def phase_h1(dev):
 
 
 def phase_h2(dev):
-    """Phase C's sensor path at data_parallel 2 over frames 0-4."""
+    """Phase C's sensor path at data_parallel 2 over frames 0-2."""
     t0 = time.perf_counter()
     print(f"[H] cut: H2 phase C's frames 0-{SENSOR_FRAMES - 1} -> 0-"
           f"{H2_FRAMES - 1} (BA starts past four keyframes: not reached; "
@@ -2768,16 +2762,145 @@ def phase_k(dev, a=None):
     return launches, k0, study
 
 
+# ---------------------------------------------------------------- phase L
+
+
+def phase_l1(dev):
+    """dp_scaling at its toy shapes at W = 1, 2, 4, 8 and at bench shapes
+    at W = 1 and 8, each world size as a gloo group of its own on the
+    card (one pool of processes serves them all): the audit passes at
+    every W with the bytes an iteration equal to the bucket's formula (the
+    same at every W), the replicas bit-equal, K1 launched on every rank,
+    the FLOP ratio within L_FLOPS_TOL of 1/W. Returns the ranks' K1
+    launches."""
+    from point_slam_tpu_torch.profiling import dp_scaling as DPS
+    launches = 0
+    with DPS.rank_pool(dev, max(DPS.WORLDS["toy"])) as pool:
+        for worlds, extra in ((DPS.WORLDS["toy"], []),
+                              (DPS.WORLDS["bench"], ["--bench-shapes"])):
+            t0 = time.perf_counter()
+            rep = DPS.main(["--device", "cuda"] + extra, pool=pool)
+            launches += phase_l1_check(rep)
+            print(f"[L1] {rep['shapes']}: AUDIT PASS at W = {worlds}, "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
+def phase_l1_check(rep):
+    """phase_l1's checks of one dp_scaling report; its K1 launches."""
+    launches = 0
+    for row in rep["rows"]:
+        w = row["world"]
+        ratio = row["flops_ratio_vs_w1"]
+        step = None if row["step_s"] is None else round(row["step_s"], 4)
+        print(f"[L1] {rep['shapes']} W={w}: audit "
+              f"{'PASS' if row['audit_ok'] else 'FAIL'}; all-reduced "
+              f"{row['bytes_an_iteration']} bytes an iteration a rank = "
+              f"formula {row['formula_bytes_an_iteration']} "
+              f"({row['n_rows']} live rows); the JAX rule's CAP*72*4 at "
+              f"CAP {row['cap']}: {row['jax_rule_bytes_an_iteration']} "
+              f"(GSPMD's whole leaf, not a measurement); replicas "
+              f"bit-equal {row['replicas_equal']}; FLOP ratio "
+              f"{ratio:.4f} (1/W {1 / w:.4f}); step {step} s; K1 launches "
+              f"(all ranks) {row['launches']['ray_topk_packed']}, fewest "
+              f"on a rank {row['launches_min_rank']['ray_topk_packed']}",
+              flush=True)
+        if not (row["audit_ok"] and row["replicas_equal"]
+                and row["bytes_an_iteration"]
+                == row["formula_bytes_an_iteration"]):
+            raise AssertionError(f"[L1] W={w}: the audit failed: {row}")
+        if abs(ratio * w - 1.0) > L_FLOPS_TOL:
+            raise AssertionError(f"[L1] W={w}: FLOP ratio {ratio} not "
+                                 f"within {L_FLOPS_TOL:.0%} of 1/{w}")
+        if not row["launches_min_rank"]["ray_topk_packed"]:
+            raise AssertionError(f"[L1] W={w}: a rank launched no K1")
+        launches += row["launches"]["ray_topk_packed"]
+    if not (rep["ok"] and rep["same_formula_at_every_world"]):
+        raise AssertionError("[L1] dp_scaling: AUDIT FAIL")
+    return launches
+
+
+def phase_l2():
+    """cond_dup_probe at bench shapes: both stages' counts, each with
+    feature gathers, scatters and K1 in its trace."""
+    from point_slam_tpu_torch.profiling import cond_dup_probe
+    t0 = time.perf_counter()
+    res = cond_dup_probe.main(["--device", "cuda"])
+    rows = res["signatures"]["feat_rows"]
+    for name, st in res["stages"].items():
+        if not (st["feat_gather"] and st["scatter"] and st["k1_launches"]
+                and st["k1_kernels"]):
+            raise AssertionError(f"[L2] {name}: the trace caught no gather, "
+                                 f"scatter or K1: {st}")
+        if st["scatter_rows"] != [rows] * st["scatter"]:
+            raise AssertionError(f"[L2] {name}: scatter rows "
+                                 f"{st['scatter_rows']}, signature {rows}")
+    print(f"[L2] cond_dup_probe: {res['answer']}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def phase_l3():
+    """crash_bisect at CAP 2^19 in a process of its own, so that its cold
+    round is the process's first use of the card (every stage OK with a
+    finite v), then crash_bisect2 at L_ITERS_FIRST here (finite loss,
+    points). Returns both scripts' launches."""
+    import math
+    import subprocess
+    from point_slam_tpu_torch.profiling import crash_bisect2
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "point_slam_tpu_torch.profiling.crash_bisect",
+         "all", str(L_N)], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode:
+        raise AssertionError(f"[L3] crash_bisect exited with "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(HERE, "output", "torch", "crash_bisect.json")) as f:
+        out = json.load(f)
+    bad = [r["stage"] for r in out["stages"] if not math.isfinite(r["v"])]
+    if bad or out["cap"] != 1 << 19 or len(out["stages"]) != 12:
+        raise AssertionError(f"[L3] crash_bisect: stages {bad} not finite, "
+                             f"CAP {out['cap']}, {len(out['stages'])} stages")
+    t1 = time.perf_counter()
+    res, counts = j_counted(crash_bisect2.main,
+                            [str(L_ITERS_FIRST), "--device", "cuda"])
+    if not (math.isfinite(res["geo_loss"]) and math.isfinite(res["v"])
+            and res["n_points"] > 0):
+        raise AssertionError(f"[L3] crash_bisect2: {res}")
+    print(f"[L3] crash_bisect {t1 - t0:.2f} s (N {L_N}, a process of its "
+          f"own); crash_bisect2 {time.perf_counter() - t1:.2f} s",
+          flush=True)
+    return {k: out["launches"].get(k, 0) + counts.get(k, 0)
+            for k in set(out["launches"]) | set(counts)}
+
+
+def phase_l(dev):
+    """The last profiling modules (L1-L3). Returns phase L's launches, every
+    rank's included."""
+    t0 = time.perf_counter()
+    launches = {"ray_topk_packed": phase_l1(dev)}
+    _, counts = j_counted(phase_l2)
+    for table in (counts, phase_l3()):
+        for name, v in table.items():
+            if v:
+                launches[name] = launches.get(name, 0) + v
+    print(f"[L] phase L wall {time.perf_counter() - t0:.2f} s; launches "
+          f"{launches}; card {card_line()}", flush=True)
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEFGHIJK",
+    ap.add_argument("--phases", default="ABCDEFGHIJKL",
                     help="run only these phases (e.g. A); a partial run "
                          "prints no kernels line and no result line")
     ap.add_argument("--j-root", default=None,
                     help="(phase J's children) the temporary output root")
     args = ap.parse_args()
     phases = args.phases.upper()
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     if phases in ("E", "H3"):
         # phase E's (and H3's) deterministic mode needs cuBLAS's fixed
@@ -2810,7 +2933,7 @@ def main():
     if phases in J_CHILDREN:
         phase_j_child(phases, args.j_root)
         return
-    if phases != "ABCDEFGHIJK":
+    if phases != "ABCDEFGHIJKL":
         for name, phase in (("A", phase_a),
                             ("B", lambda d: phase_b(d, b_ref)),
                             ("C", phase_c), ("D", phase_d),
@@ -2818,7 +2941,8 @@ def main():
                             ("F", phase_f),
                             ("G", lambda d: phase_g(d, b_ref)),
                             ("H", phase_h), ("I", phase_i),
-                            ("J", phase_j), ("K", phase_k)):
+                            ("J", phase_j), ("K", phase_k),
+                            ("L", phase_l)):
             if name in phases:
                 phase(dev)
         return
@@ -2837,13 +2961,16 @@ def main():
     i_totals = phase_i(dev)
     j_totals = phase_j(dev, j_children)
     k_totals, k0, k_study = phase_k(dev, a)
+    l_totals = phase_l(dev)
     for name in launches:
         launches[name] += (f_launches.get(name, 0) + g_launches.get(name, 0)
                            + h_launches.get(name, 0)
                            + i_totals.get(name, 0) + j_totals.get(name, 0)
-                           + k_totals.get(name, 0))
+                           + k_totals.get(name, 0) + l_totals.get(name, 0))
     for body, n in k_study.items():
         study[body]["launches"] += n
+    print(f"[smoke] whole wall {time.perf_counter() - t_start:.2f} s",
+          flush=True)
     print(json.dumps({"kernels": kernel_records(a, launches, k0)
                       + study_records(study)}))
     print(card_line())

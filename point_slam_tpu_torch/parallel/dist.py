@@ -19,6 +19,10 @@ robust-mask median and mean) are taken over all ranks' rays. Every rank
 then steps the same reduced gradient, so the replicas stay bit-equal.
 Rank 0 alone writes files (``is_writer``).
 
+``Ranks`` starts such groups inside one host for the tools and tests that
+compare world sizes: spawned processes that join a gloo group over a
+FileStore, run a job and leave it.
+
 The loops call these helpers whether or not a group exists: with a group
 of any size, world size 1 included, they take the collectives; without
 one each is the local computation (``shard`` the whole batch, the
@@ -29,7 +33,8 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Any, Dict, List, Sequence
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -39,6 +44,9 @@ from point_slam_tpu_torch.common import image
 # the finite timeout of every process group the port creates: a rank that
 # waits longer at a collective (a crashed or hung peer) fails
 TIMEOUT = datetime.timedelta(minutes=30)
+
+# the default timeout of a ``Ranks`` group and of its ranks' join
+RANKS_TIMEOUT_S = 300
 
 # bytes this rank has sent into all_reduce and all_gather (the counts of
 # the reduced or gathered tensors), for the smoke test's traffic line
@@ -177,3 +185,123 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def barrier() -> None:
     if active():
         dist.barrier()
+
+
+def _rank_worker(slot: int, tasks, results, device: str) -> None:
+    """A ``Ranks`` process: for each task it joins the task's gloo group as
+    rank ``slot`` (or none), runs the job, saves what it returns with
+    torch.save and leaves the group; (the task's number, slot, None or
+    the traceback) goes to ``results``. ``None`` ends it."""
+    import traceback
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        # every rank on the one card
+        torch.cuda.set_device(0)
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        n, job, payload, world, store, out, timeout_s = task
+        try:
+            if not cuda:
+                # one intra-op thread, so that the CPU's sums run in one
+                # order and runs with and without a group can be bit-equal
+                torch.set_num_threads(1)
+            if store:
+                dist.init_process_group(
+                    "gloo", store=dist.FileStore(store, world), rank=slot,
+                    world_size=world,
+                    timeout=datetime.timedelta(seconds=timeout_s))
+            try:
+                res = job(payload)
+            finally:
+                if store:
+                    dist.destroy_process_group()
+            torch.save(res, out)
+            if cuda:
+                torch.cuda.empty_cache()
+            results.put((n, slot, None))
+        except Exception:
+            # the process serves the next job; the parent raises
+            results.put((n, slot, traceback.format_exc()))
+
+
+class Ranks:
+    """``n`` spawned processes that run jobs as the ranks of gloo groups:
+    for a job of world size W, the first W of them join a group of their
+    own over a new FileStore under ``root`` (timeout ``timeout_s``), run
+    ``job(payload)``, save what it returns there and leave the group, so
+    one set of processes serves several world sizes. On CUDA every process
+    uses card 0 (NCCL refuses two ranks on one card; gloo does not), and
+    the kernels must be built before the processes start; on the CPU each
+    runs one intra-op thread. Leaving the ``with`` block ends the
+    processes and kills any that hang."""
+
+    def __init__(self, n: int, device, root: str,
+                 timeout_s: float = RANKS_TIMEOUT_S):
+        self.n, self.device, self.root = n, str(device), str(root)
+        self.timeout_s = timeout_s
+        self.jobs = 0
+
+    def __enter__(self):
+        import multiprocessing as mp
+        os.makedirs(self.root, exist_ok=True)
+        ctx = mp.get_context("spawn")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(self.n)]
+        self.procs = [ctx.Process(target=_rank_worker,
+                                  args=(r, self.tasks[r], self.results,
+                                        self.device))
+                      for r in range(self.n)]
+        for p in self.procs:
+            p.start()
+        return self
+
+    def run(self, job: Callable[[Any], Any], payload: Any = None,
+            world: int = 1, group: bool = True) -> List[Any]:
+        """``job(payload)`` (a function a spawned process can import) on
+        ranks 0..world-1 of a new gloo group (``group`` False: each
+        process without one); what each returned, in rank order. Raises
+        when a rank fails, ends or still runs after ``timeout_s``."""
+        import queue
+        if world > self.n:
+            raise ValueError(f"a job of {world} ranks on {self.n} processes")
+        self.jobs += 1
+        tag = os.path.join(self.root, f"job{self.jobs}_w{world}")
+        store: Optional[str] = tag + "_store" if group else None
+        outs = [f"{tag}_rank{r}.pt" for r in range(world)]
+        for path in [store] + outs:
+            if path and os.path.exists(path):
+                os.remove(path)
+        for r in range(world):
+            self.tasks[r].put((self.jobs, job, payload, world, store,
+                               outs[r], self.timeout_s))
+        done = set()
+        deadline = time.monotonic() + self.timeout_s
+        while len(done) < world:
+            try:
+                n, slot, err = self.results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r in range(world)
+                        if not self.procs[r].is_alive()]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"W={world}: processes {dead} ended, or the ranks "
+                        f"ran past {self.timeout_s} s")
+                continue
+            if n != self.jobs:
+                continue        # a rank of an earlier job that failed
+            if err:
+                raise RuntimeError(f"W={world} rank {slot} failed:\n{err}")
+            done.add(slot)
+        return [torch.load(p, weights_only=False) for p in outs]
+
+    def __exit__(self, *exc):
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(10 if exc[0] is None else 0.1)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)

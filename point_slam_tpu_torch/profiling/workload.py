@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,36 +36,57 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 OUTPUT = os.path.join(HERE, "output")
 
 
+# bench.py's camera, and the 48x64 camera of the host runs
+CAM = {"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0, "cx": 599.5,
+       "cy": 339.5}
+SMALL_CAM = {"H": 48, "W": 64, "fx": 40.0, "fy": 40.0, "cx": 31.5,
+             "cy": 23.5}
+
+
+def bench_widths(small: bool = False) -> Dict[str, Dict[str, Any]]:
+    """bench.py's camera and mapping-ray widths as overrides by section:
+    the 680x1200 camera (focal 600) at ``angular_step`` 0.01, 5000 mapping
+    rays, 6000 uniform and 1000 colour-gradient densification rays,
+    window 12, no near-cloud sampling; ``small``: the 48x64 camera (focal
+    40) with 400, 200 and 50 rays."""
+    rays = (400, 200, 50) if small else (5000, 6000, 1000)
+    return {"synthetic": {"angular_step": 0.01},
+            "cam": dict(SMALL_CAM if small else CAM),
+            "mapping": {**dict(zip(("pixels", "pixels_adding",
+                                    "pixels_based_on_color_grad"), rays)),
+                        "mapping_window_size": 12},
+            "rendering": {"sample_near_pcl": False}}
+
+
+def override(cfg, updates: Dict[str, Dict[str, Any]]):
+    """``cfg`` with each section updated from ``updates``."""
+    for sec, upd in updates.items():
+        cfg[sec].update(upd)
+    return cfg
+
+
 def bench_config(n_frames: int, scene: str = "room.yaml",
                  iters_first: int = 1500, small: bool = False):
     """configs/Synthetic/<scene> with bench.py's overrides; ``small``: a
-    48x64 camera, 300 tracking and 400 mapping rays, CAP 2^13."""
+    48x64 camera, 300 tracking and 400 mapping rays, window 5, CAP 2^13."""
     from point_slam_tpu_torch.config import load_config
     cfg = load_config(os.path.join(HERE, "configs", "Synthetic", scene),
                       os.path.join(HERE, "configs", "point_slam.yaml"))
-    cfg["synthetic"].update({"n_frames": n_frames, "angular_step": 0.01})
-    cfg["cam"].update({"H": 680, "W": 1200, "fx": 600.0, "fy": 600.0,
-                       "cx": 599.5, "cy": 339.5})
+    override(cfg, bench_widths(small))
+    cfg["synthetic"]["n_frames"] = n_frames
     cfg["tracking"].update({"pixels": 1500, "iters": 40,
                             "ignore_edge_W": 100, "ignore_edge_H": 100})
     cfg["mapping"].update({
-        "pixels": 5000, "pixels_adding": 6000,
-        "pixels_based_on_color_grad": 1000, "iters": 300,
-        "iters_first": iters_first, "geo_iter_first": 400,
-        "mapping_window_size": 12, "keyframe_every": 5, "every_frame": 5,
-        "lazy_start": False, "color_refine": False})
-    cfg["rendering"]["sample_near_pcl"] = False
+        "iters": 300, "iters_first": iters_first, "geo_iter_first": 400,
+        "keyframe_every": 5, "every_frame": 5, "lazy_start": False,
+        "color_refine": False})
     cfg["cuda"].update({"point_capacity_init": 1 << 17,
                         "grid_table_size": 1 << 16, "grid_max_per_cell": 64,
                         "knn_probes": 27})
     if small:
-        cfg["cam"].update({"H": 48, "W": 64, "fx": 40.0, "fy": 40.0,
-                           "cx": 31.5, "cy": 23.5})
         cfg["tracking"].update({"pixels": 300, "iters": 2,
                                 "ignore_edge_W": 5, "ignore_edge_H": 5})
-        cfg["mapping"].update({"pixels": 400, "pixels_adding": 200,
-                               "pixels_based_on_color_grad": 50,
-                               "mapping_window_size": 5})
+        cfg["mapping"]["mapping_window_size"] = 5
         cfg["cuda"].update({"point_capacity_init": 1 << 13,
                             "grid_table_size": 1 << 14})
     cfg["verbose"] = False
@@ -84,8 +105,7 @@ def color_config(small: bool = False):
                       os.path.join(HERE, "configs", "point_slam.yaml"))
     cfg["synthetic"].update({"n_frames": 2, "angular_step": 0.01})
     if small:
-        cfg["cam"].update({"H": 48, "W": 64, "fx": 40.0, "fy": 40.0,
-                           "cx": 31.5, "cy": 23.5})
+        cfg["cam"].update(SMALL_CAM)
         cfg["mapping"].update({"pixels": 200, "pixels_adding": 400})
         cfg["cuda"].update({"point_capacity_init": 1 << 13,
                             "grid_table_size": 1 << 14})

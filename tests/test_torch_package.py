@@ -342,7 +342,8 @@ PROFILING_TOOLS = (
     "interp_inspect", "knn_pallas_stages", "knn_pallas2_v5", "knn_pallas5",
     "knn_chain", "knn_split", "knn_prod_stages", "knn_packed_ab",
     "profile_gather", "color_direct", "color_ablate", "color_train_iso",
-    "color_debug", "color_blowup", "color_converge")
+    "color_debug", "color_blowup", "color_converge", "dp_scaling",
+    "cond_dup_probe", "crash_bisect", "crash_bisect2")
 
 
 def test_auto_knobs_resolve_by_device():

@@ -1,11 +1,11 @@
 """Process groups for the port's data-parallel tests (test_torch_parallel.py).
 
-``spawn(job, world, tmp_dir, payload)`` starts ``world`` processes (the
-spawn method), each in a gloo group over a FileStore under ``tmp_dir``
-with a finite timeout, runs ``job(payload)`` in each and returns what each
-rank returned (saved with torch.save). The children are joined with a
-time limit and killed when it runs out, so a hung collective fails the
-test instead of holding the run.
+``spawn(job, world, tmp_dir, payload)`` runs ``job(payload)`` on
+``world`` spawned processes, each a rank of a gloo group over a FileStore
+under ``tmp_dir`` with a finite timeout, through the port's own launcher
+(``point_slam_tpu_torch.parallel.dist.Ranks``), and returns what each
+rank returned. The ranks are joined with a time limit and killed when it
+runs out, so a hung collective fails the test instead of holding the run.
 
 The jobs are here, beside the harness, because a spawned child imports
 its target by module: this module imports torch and the port only, never
@@ -15,67 +15,23 @@ world-size-1 run without collectives.
 """
 
 import copy
-import datetime
-import multiprocessing as mp
 import os
-import time
 
 import numpy as np
 import torch
 
+from point_slam_tpu_torch.parallel import dist as pdist
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(HERE, "configs")
-TIMEOUT_S = 300
 
 
-def _child(job, rank, world, tmp_dir, payload, timeout_s, group):
-    import torch.distributed as dist
-    # one intra-op thread in every process, so that the CPU's sums run in
-    # one order and runs with and without a group can be bit-equal
-    torch.set_num_threads(1)
-    if group:
-        dist.init_process_group(
-            "gloo", store=dist.FileStore(os.path.join(tmp_dir, "store"),
-                                         world),
-            rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=timeout_s))
-    try:
-        out = job(payload)
-        torch.save(out, os.path.join(tmp_dir, f"rank{rank}.pt"))
-    finally:
-        if group:
-            dist.destroy_process_group()
-
-
-def spawn(job, world, tmp_dir, payload=None, group=True,
-          timeout_s=TIMEOUT_S):
+def spawn(job, world, tmp_dir, payload=None, group=True):
     """``job(payload)`` on each of ``world`` ranks (``group`` False: one
     process without a group); their results in rank order. Raises if a
-    rank fails or any still runs after ``timeout_s``."""
-    os.makedirs(tmp_dir)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_child, args=(job, r, world, str(tmp_dir),
-                                              payload, timeout_s, group))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout_s
-    try:
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-    finally:
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join(10)
-    if hung:
-        raise AssertionError(f"{len(hung)} of {world} ranks still ran after "
-                             f"{timeout_s} s and were killed")
-    codes = [p.exitcode for p in procs]
-    if any(codes):
-        raise AssertionError(f"the ranks exited with {codes}")
-    return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"),
-                       weights_only=False) for r in range(world)]
+    rank fails or any still runs after ``pdist.RANKS_TIMEOUT_S``."""
+    with pdist.Ranks(world, "cpu", tmp_dir) as ranks:
+        return ranks.run(job, payload, world, group)
 
 
 # --------------------------------------------------------------- the jobs
