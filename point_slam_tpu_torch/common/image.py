@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from point_slam_tpu_torch.utils import spans
+
 # skimage rgb2gray weights (ITU-R 601-2).
 _GRAY_W = (0.2125, 0.7154, 0.0721)
 # skimage sobel_h kernel (horizontal edges, gradient along rows), /4.
@@ -16,8 +18,7 @@ _SOBEL_H = np.array([[1, 2, 1], [0, 0, 0], [-1, -2, -1]], np.float32) / 4.0
 
 def rgb2gray(img: torch.Tensor) -> torch.Tensor:
     """(H,W,3) float RGB -> (H,W) luminance, skimage-compatible."""
-    return img.float() @ torch.tensor(_GRAY_W, dtype=torch.float32,
-                                      device=img.device)
+    return img.float() @ spans.upload(_GRAY_W, img.device, torch.float32)
 
 
 def decode_wire_frame(packed: torch.Tensor, depth_inv_scale: float):
@@ -48,7 +49,7 @@ def encode_wire_frame(color: torch.Tensor, depth: torch.Tensor,
 def _conv2_reflect(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     """2D correlation with edge-duplicating padding (scipy 'reflect' ==
     numpy 'symmetric', which at width 1 is torch 'replicate')."""
-    k = torch.as_tensor(kernel, device=img.device)[None, None]
+    k = spans.upload(kernel, img.device)[None, None]
     padded = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")
     return F.conv2d(padded, k)[0, 0]
 
@@ -71,8 +72,8 @@ def color_gradient_magnitude(color: torch.Tensor) -> torch.Tensor:
 
 def piecewise_linear(x: torch.Tensor, xs, ys) -> torch.Tensor:
     """``jnp.interp`` over the breakpoints (xs, ys), clamped at both ends."""
-    xp = torch.tensor(xs, dtype=torch.float32, device=x.device)
-    fp = torch.tensor(ys, dtype=torch.float32, device=x.device)
+    xp = spans.upload(xs, x.device, torch.float32)
+    fp = spans.upload(ys, x.device, torch.float32)
     i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True),
                     1, len(xs) - 1)
     df = fp[i] - fp[i - 1]
@@ -106,12 +107,14 @@ def dynamic_radius_maps(color: torch.Tensor, radius_add_max: float,
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Median over masked entries with torch.median semantics: the LOWER
-    middle, sorted[(n-1)//2]; +inf if the mask is empty. Sort-based and
-    free of host syncs (the index stays a device tensor)."""
-    inf = torch.tensor(torch.inf, dtype=x.dtype, device=x.device)
+    middle, sorted[(n-1)//2]; +inf if the mask is empty. Sort-based; on
+    CUDA the constant's upload and the index (a 0-dim device tensor, read
+    by the indexing) each sync the host."""
+    inf = spans.upload(torch.inf, x.device, x.dtype)
     vals, _ = torch.sort(torch.where(mask, x, inf))
     n = mask.sum()
-    val = vals[torch.clamp(n - 1, min=0) // 2]
+    with spans.span("sync.median"):
+        val = vals[torch.clamp(n - 1, min=0) // 2]
     return torch.where(n > 0, val, inf)
 
 

@@ -10,8 +10,12 @@ with per-column learning rates and step counts; the frustum row mask
 multiplies its gradient (or rides into the fused row-Adam kernel). The
 colour groups restart their step count at the geometry -> colour switch,
 as torch.optim.Adam does for a group whose first gradient arrives there.
-The loop has no host sync per iteration apart from the counts of
-non-compact and depth-free rays in the kNN paths.
+The loop reads no loss per iteration. On CUDA its host syncs an
+iteration are the uploads of small constants from the host (the masked
+median's, the probe tables', Adam's step count), the median's index, the
+counts of non-compact and depth-free rays in the kNN paths, and the
+compositing's ``cumprod`` backward, which reads whether its input holds a
+zero.
 
 With ``model.encode_exposure`` each window slot carries an exposure latent
 (only the current frame's moves); with ``mapping.BA`` and more than four
@@ -33,6 +37,17 @@ each renders its block, and the gradients (the packed leaf's live prefix,
 the decoders, the exposure latents, the BA cameras) and the logged loss
 statistics are summed over the ranks in one all_reduce before the masks
 and Adam. Densification, the window and the frustum mask are replicated.
+
+Spans (``utils/spans.py``, under the schedule's ``map_frame``):
+``map.densify`` (with ``pc.add_points`` and ``pc.insert_index`` inside,
+counting ``points_added``), ``map.frustum``, ``map.window`` (the overlap
+scores, then ``select_keyframes``, ``KeyframeStore.gather_window`` and the
+BA cameras), ``sync.map_fetch`` (the densify counters and the scores),
+``map.optimize`` with a ``map.iter`` an iteration (``map.sample``,
+``map.render``, ``map.backward``, ``map.step``), ``sync.map_stats`` (the
+loss statistics, the exposure latent, the BA cameras) and
+``map.keyframe_append``; ``sync.*`` around each other host read of the
+device and each upload from the host.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ from point_slam_tpu_torch import renderer as R
 from point_slam_tpu_torch.common import camera, image, sampling
 from point_slam_tpu_torch.ops import adam
 from point_slam_tpu_torch.parallel import dist as pdist
+from point_slam_tpu_torch.utils import spans
 
 
 class MapperStatic(NamedTuple):
@@ -132,7 +148,8 @@ class KeyframeStore:
         slot = len(self.est_c2w)
         wire = image.encode_wire_frame(color_dev, depth_dev, self.depth_scale)
         if self.host_mode:
-            self.frames.append(wire.cpu().numpy())
+            with spans.span("sync.keyframe_fetch"):
+                self.frames.append(wire.cpu().numpy())
         else:
             if slot >= self.capacity:
                 raise RuntimeError(
@@ -157,7 +174,7 @@ class KeyframeStore:
         arr = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
         if n:
             arr[:n] = np.stack(self.est_c2w)
-        return torch.as_tensor(arr, device=self.device)
+        return spans.upload(arr, self.device)
 
     def _upload_window(self, slots: List[int], f_max: int) -> torch.Tensor:
         """Host ring: the wire frames of ``slots`` in the staging buffer
@@ -169,7 +186,8 @@ class KeyframeStore:
             self._staging = torch.empty((f_max, self.h, self.w, 5),
                                         dtype=torch.uint8, pin_memory=cuda)
         elif self._uploaded is not None:
-            self._uploaded.synchronize()    # the last copy has read it
+            with spans.span("sync.window_upload"):
+                self._uploaded.synchronize()    # the last copy has read it
         staging = self._staging.numpy()
         for k, s in enumerate(slots):
             staging[k] = self.frames[s] if self.frames else 0
@@ -186,7 +204,7 @@ class KeyframeStore:
         zero latent)."""
         slots = (list(sel) + [0] * f_max)[:f_max]
         wire = (self._upload_window(slots, f_max) if self.host_mode
-                else self.ring[torch.as_tensor(slots, device=self.device)])
+                else self.ring[spans.upload(slots, self.device)])
         color, depth = image.decode_wire_frame(wire, 1.0 / self.depth_scale)
         rq = torch.full(depth.shape, 1e6, device=self.device)
         for k in range(len(sel)):
@@ -197,8 +215,8 @@ class KeyframeStore:
         for k, s in enumerate(sel):
             c2w[k] = self.est_c2w[s]
             exp[k] = self.exposure[s]
-        return (color, depth, rq, torch.as_tensor(c2w, device=self.device),
-                torch.as_tensor(exp, device=self.device))
+        return (color, depth, rq, spans.upload(c2w, self.device),
+                spans.upload(exp, self.device))
 
 
 def overlap_scores(ms: MapperStatic, ring_est_c2w, n_kf: int, cur_c2w,
@@ -218,8 +236,10 @@ def overlap_scores(ms: MapperStatic, ring_est_c2w, n_kf: int, cur_c2w,
     scores = []
     edge = 20
     for c2w in ring_est_c2w:
-        u, v, zc = camera.project_points(pts, torch.linalg.inv(c2w), ms.fx,
-                                         ms.fy, ms.cx, ms.cy)
+        with spans.span("sync.inv"):      # the inverse's error check
+            w2c = torch.linalg.inv(c2w)
+        u, v, zc = camera.project_points(pts, w2c, ms.fx, ms.fy, ms.cx,
+                                         ms.cy)
         m = ((u < ms.w - edge) & (u > edge) & (v < ms.h - edge) & (v > edge)
              & (zc < 0) & pt_ok)
         scores.append(m.sum() / torch.clamp(pt_ok.sum(), min=1))
@@ -282,7 +302,7 @@ def _cam_poses(cams: torch.Tensor) -> torch.Tensor:
     """(F, 7) quaternion + translation cameras -> (F, 4, 4) poses,
     differentiable."""
     rt = camera.pose_matrix_from_tensor(cams)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cams.device)
+    bottom = spans.upload([0.0, 0.0, 0.0, 1.0], cams.device)
     return torch.cat([rt, bottom.expand(rt.shape[0], 1, 4)], dim=1)
 
 
@@ -408,79 +428,90 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                                  state["v"][0], frustum_f))
     stats = torch.zeros(3, device=dev)
     for it in range(n_iters):
-        i, j, fill = draws[it] if draws is not None else (None, None, None)
-        rays = _sample_window_rays(ms, (color, depth, rquery), n_frames,
-                                   pixs_per_image, i, j, generator)
-        if fill is None:
-            fill = R.draw_fill(generator, dev)
-        far = R.ray_far(rays["gt_depth"], rays["ray_ok"])
-        rays = {k: pdist.shard(v) for k, v in rays.items()}
-        stage_geo = it <= geo_iter_bound
-        leaves[0].requires_grad_(True)
-        for k in (i_exp, i_cam):
-            if k is not None:
-                leaves[k].requires_grad_(True)
-        loss, geo_l, col_l, n_mask = _losses(
-            ms, rc, dec,
-            pc.encode_render(leaves[0]) if ms.bf16_features else leaves[0],
-            index, rays,
-            c2w_all if i_cam is None else _cam_poses(leaves[i_cam]),
-            stage_color=not stage_geo, fill=fill,
-            window_exposure=None if i_exp is None else leaves[i_exp],
-            far=far)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        with torch.no_grad():
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(leaves, grads)]
-            stats = torch.stack([geo_l.detach(), col_l.detach(),
-                                 n_mask.float()])
-            pdist.all_reduce_flat([grads[0][:n_rows]] + grads[1:] + [stats])
-            for k in range(1, 1 + n_col):
-                grads[k] = grads[k] * fix_color
-            if i_exp is not None:
-                grads[i_exp] = grads[i_exp] * exp_onehot
-            if i_cam is not None:
-                # the oldest keyframe anchors the map; padding slots too
-                grads[i_cam] = grads[i_cam] * ba_mask
-            lrs = lr_geo_stage if stage_geo else lr_color_stage
-            t_geo = float(it + 1)
-            t_col = float(max(it - geo_iter_bound, 1))
-            t_row = geo_cols * t_geo + col_cols * t_col + rest_cols * t_geo
-            lr_row = lr_rows[0] if stage_geo else lr_rows[1]
-            ts = [t_row] + [t_col] * n_col + [t_geo] * (n_dec - n_col)
-            lr_all = [lr_row] + [lrs[0]] * n_dec
-            if i_exp is not None:
-                ts.append(t_col)
-                lr_all.append(lr_exposure)
-            if i_cam is not None:
-                # the cameras move only in iterations [lo, hi]
-                ts.append(t_geo)
-                lr_all.append(ba["lr"] if ba["lo"] <= it <= ba["hi"] else 0.0)
-            params = [p.detach() for p in leaves]
-            if ms.fused_adam:
-                p0, s0 = adam.update_rows(
-                    p_live, grads[0][:n_rows], {"m": m_live, "v": v_live},
-                    t_row, lr_row, mask_live)
-                for dst, src in ((p_live, p0), (m_live, s0["m"]),
-                                 (v_live, s0["v"])):
-                    if src is not dst:   # the CPU's plain version
-                        dst.copy_(src)
-                new, rest = adam.update(
-                    params[1:], grads[1:], {"m": state["m"][1:],
-                                            "v": state["v"][1:]},
-                    ts[1:], lr_all[1:])
-                new = [params[0]] + new
-                state = {"m": state["m"][:1] + rest["m"],
-                         "v": state["v"][:1] + rest["v"]}
-            else:
-                grads[0] = grads[0] * frustum_f[:, None]
-                new, state = adam.update(params, grads, state, ts, lr_all)
-            for p, q in zip(leaves[1:1 + n_dec], new[1:1 + n_dec]):
-                p.copy_(q)
-            leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
-        if chunk_hook is not None and (it + 1) % chunk == 0 \
-                and it + 1 < n_iters:
-            chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach(), stats)
+        with spans.span("map.iter", it=it):
+            with spans.span("map.sample"):
+                i, j, fill = (draws[it] if draws is not None
+                              else (None, None, None))
+                rays = _sample_window_rays(ms, (color, depth, rquery),
+                                           n_frames, pixs_per_image, i, j,
+                                           generator)
+                if fill is None:
+                    fill = R.draw_fill(generator, dev)
+                far = R.ray_far(rays["gt_depth"], rays["ray_ok"])
+                rays = {k: pdist.shard(v) for k, v in rays.items()}
+            stage_geo = it <= geo_iter_bound
+            leaves[0].requires_grad_(True)
+            for k in (i_exp, i_cam):
+                if k is not None:
+                    leaves[k].requires_grad_(True)
+            with spans.span("map.render"):
+                loss, geo_l, col_l, n_mask = _losses(
+                    ms, rc, dec,
+                    (pc.encode_render(leaves[0]) if ms.bf16_features
+                     else leaves[0]),
+                    index, rays,
+                    c2w_all if i_cam is None else _cam_poses(leaves[i_cam]),
+                    stage_color=not stage_geo, fill=fill,
+                    window_exposure=None if i_exp is None else leaves[i_exp],
+                    far=far)
+            with spans.span("map.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with spans.span("map.step"), torch.no_grad():
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+                stats = torch.stack([geo_l.detach(), col_l.detach(),
+                                     n_mask.float()])
+                pdist.all_reduce_flat([grads[0][:n_rows]] + grads[1:]
+                                      + [stats])
+                for k in range(1, 1 + n_col):
+                    grads[k] = grads[k] * fix_color
+                if i_exp is not None:
+                    grads[i_exp] = grads[i_exp] * exp_onehot
+                if i_cam is not None:
+                    # the oldest keyframe anchors the map; padding slots too
+                    grads[i_cam] = grads[i_cam] * ba_mask
+                lrs = lr_geo_stage if stage_geo else lr_color_stage
+                t_geo = float(it + 1)
+                t_col = float(max(it - geo_iter_bound, 1))
+                t_row = (geo_cols * t_geo + col_cols * t_col
+                         + rest_cols * t_geo)
+                lr_row = lr_rows[0] if stage_geo else lr_rows[1]
+                ts = [t_row] + [t_col] * n_col + [t_geo] * (n_dec - n_col)
+                lr_all = [lr_row] + [lrs[0]] * n_dec
+                if i_exp is not None:
+                    ts.append(t_col)
+                    lr_all.append(lr_exposure)
+                if i_cam is not None:
+                    # the cameras move only in iterations [lo, hi]
+                    ts.append(t_geo)
+                    lr_all.append(ba["lr"] if ba["lo"] <= it <= ba["hi"]
+                                  else 0.0)
+                params = [p.detach() for p in leaves]
+                if ms.fused_adam:
+                    p0, s0 = adam.update_rows(
+                        p_live, grads[0][:n_rows],
+                        {"m": m_live, "v": v_live}, t_row, lr_row, mask_live)
+                    for dst, src in ((p_live, p0), (m_live, s0["m"]),
+                                     (v_live, s0["v"])):
+                        if src is not dst:   # the CPU's plain version
+                            dst.copy_(src)
+                    new, rest = adam.update(
+                        params[1:], grads[1:], {"m": state["m"][1:],
+                                                "v": state["v"][1:]},
+                        ts[1:], lr_all[1:])
+                    new = [params[0]] + new
+                    state = {"m": state["m"][:1] + rest["m"],
+                             "v": state["v"][:1] + rest["v"]}
+                else:
+                    grads[0] = grads[0] * frustum_f[:, None]
+                    new, state = adam.update(params, grads, state, ts,
+                                             lr_all)
+                for p, q in zip(leaves[1:1 + n_dec], new[1:1 + n_dec]):
+                    p.copy_(q)
+                leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
+            if chunk_hook is not None and (it + 1) % chunk == 0 \
+                    and it + 1 < n_iters:
+                chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach(), stats)
     return (leaves[0].detach(), stats,
             None if i_exp is None else leaves[i_exp].detach(),
             None if i_cam is None else leaves[i_cam].detach())
@@ -647,6 +678,71 @@ class Mapper:
             sel = list(self.rng.permutation(qualifying)[:num])
         return [int(s) for s in sel] + [n_kf - 1]
 
+    def _densify(self, init: bool, color, depth, cur_c2w_dev, r_add,
+                 cand_idx, cand_ok, n_acc: list) -> None:
+        """Add points from uniform and colour-gradient candidate rays;
+        each insert's accepted count (a device tensor) goes to ``n_acc``.
+        Frame 0 sizes its uniform batch by the depth's median (one host
+        read)."""
+        mp, ms = self.cfg["mapping"], self.ms
+        if init:
+            with spans.span("sync.first_depth"):
+                d_host = depth.cpu().numpy()
+            med = (float(np.median(d_host[d_host > 0]))
+                   if (d_host > 0).any() else 2.5)
+            add_n = int(np.clip(mp["pixels_adding"] * (med / 2.5) ** 2,
+                                mp["pixels_adding"],
+                                mp["pixels_adding"] * 3))
+        else:
+            add_n = mp["pixels_adding"]
+        self._ensure_capacity((ms.add_max + ms.grad_max) * ms.n_add)
+        fix = self.cfg["pointcloud"]["fix_interval_when_add_along_ray"]
+
+        def densify(batch):
+            o, d, dep, col, ra, valid = batch
+            n_before = self.cloud.n_points
+            with spans.span("pc.add_points"):
+                self.cloud, n = pc.add_points(
+                    self.cloud, self.index, o, d, dep, col, valid, ra,
+                    ms.near_end_surface_pc, ms.far_end_surface_pc,
+                    n_add=ms.n_add, fix_interval=fix,
+                    generator=self.generator)
+            with spans.span("pc.insert_index"):
+                self.index = pc.insert_index(self.cloud, self.index,
+                                             n_before,
+                                             m=o.shape[0] * ms.n_add)
+            n_acc.append(n)
+
+        densify(sample_add_rays(ms, cur_c2w_dev, color, depth, r_add,
+                                add_n, self.generator))
+        if mp["pixels_based_on_color_grad"] > 0 and cand_idx is not None:
+            # drawn after the first insert, so its dedup sees those
+            # points
+            densify(sample_grad_rays(ms, cur_c2w_dev, color, depth,
+                                     r_add, cand_idx, cand_ok,
+                                     self.generator))
+
+    def _ba_cameras(self, sel: List[int], cur_c2w, n_frames: int,
+                    n_iters: int) -> Dict[str, Any]:
+        """Bundle adjustment's window cameras, their mask (the oldest
+        keyframe and the padding held) and learning-rate window."""
+        mp, ms, dev = self.cfg["mapping"], self.ms, self.device
+        poses = [self.store.est_c2w[s] for s in sel] + [cur_c2w]
+        # padding slots get IDENTITY quaternions: a zero one is a
+        # NaN pose (2/|q|^2), which would poison every gradient
+        pad_cam = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
+        cams = np.stack([camera.tensor_from_pose_matrix(p) for p in poses]
+                        + [pad_cam] * (ms.f_max - n_frames))
+        mask = np.zeros(ms.f_max, np.float32)
+        mask[:n_frames] = 1.0
+        mask[int(np.argmin([self.keyframe_list[s] for s in sel]))] = 0.0
+        ratio = mp["geo_iter_ratio"]
+        return dict(cams=spans.upload(cams, dev),
+                    mask=spans.upload(mask, dev),
+                    lr=float(mp["BA_cam_lr"]),
+                    lo=int(n_iters * (ratio + 0.2)),
+                    hi=int(n_iters * (ratio + 0.3)))
+
     def map_frame(self, idx: int, gt_color, gt_depth, gt_c2w, cur_c2w,
                   color_refine: bool = False, radius=None) -> Dict[str, Any]:
         """Map one frame. ``gt_color``/``gt_depth`` may be numpy or device
@@ -659,8 +755,7 @@ class Mapper:
         features at color_lr/10. With BA the refined poses are written back
         to the keyframe store and the current one is returned as
         ``cur_c2w``."""
-        cfg = self.cfg
-        mp = cfg["mapping"]
+        mp = self.cfg["mapping"]
         init = idx == 0
         self.refine_mode = color_refine
         fga = mp.get("fix_geo_decoder_after") or 0
@@ -668,10 +763,10 @@ class Mapper:
             self.ms = self.ms._replace(fix_geo_decoder=True)
 
         dev = self.device
-        color = torch.as_tensor(gt_color, device=dev)
-        depth = torch.as_tensor(gt_depth, device=dev)
+        color = spans.upload(gt_color, dev)
+        depth = spans.upload(gt_depth, dev)
         cur_c2w = np.asarray(cur_c2w, np.float32)
-        cur_c2w_dev = torch.as_tensor(cur_c2w, device=dev)
+        cur_c2w_dev = spans.upload(cur_c2w, dev)
         r_add, r_query, cand_idx, cand_ok = (
             radius if radius is not None else self.radius_maps(color))
         if cand_ok is not None:
@@ -680,65 +775,45 @@ class Mapper:
         # ---- densification
         ms = self.ms
         n_acc = []
+        densified = None
         if not color_refine:
-            if init:
-                d_host = depth.cpu().numpy()
-                med = (float(np.median(d_host[d_host > 0]))
-                       if (d_host > 0).any() else 2.5)
-                add_n = int(np.clip(mp["pixels_adding"] * (med / 2.5) ** 2,
-                                    mp["pixels_adding"],
-                                    mp["pixels_adding"] * 3))
-            else:
-                add_n = mp["pixels_adding"]
-            self._ensure_capacity((ms.add_max + ms.grad_max) * ms.n_add)
-            fix = cfg["pointcloud"]["fix_interval_when_add_along_ray"]
-
-            def densify(batch):
-                o, d, dep, col, ra, valid = batch
-                n_before = self.cloud.n_points
-                self.cloud, n = pc.add_points(
-                    self.cloud, self.index, o, d, dep, col, valid, ra,
-                    ms.near_end_surface_pc, ms.far_end_surface_pc,
-                    n_add=ms.n_add, fix_interval=fix,
-                    generator=self.generator)
-                self.index = pc.insert_index(self.cloud, self.index,
-                                             n_before,
-                                             m=o.shape[0] * ms.n_add)
-                n_acc.append(n)
-
-            densify(sample_add_rays(ms, cur_c2w_dev, color, depth, r_add,
-                                    add_n, self.generator))
-            if mp["pixels_based_on_color_grad"] > 0 and cand_idx is not None:
-                # drawn after the first insert, so its dedup sees those
-                # points
-                densify(sample_grad_rays(ms, cur_c2w_dev, color, depth,
-                                         r_add, cand_idx, cand_ok,
-                                         self.generator))
+            with spans.span("map.densify") as densified:
+                self._densify(init, color, depth, cur_c2w_dev, r_add,
+                              cand_idx, cand_ok, n_acc)
 
         # ---- frustum gradient mask (the whole cloud in refinement)
-        cap = self.cloud.packed.shape[0]
-        if mp["frustum_feature_selection"] and not color_refine:
-            frustum = pc.frustum_mask(
-                self.cloud.pos, self.cloud.n_points,
-                torch.linalg.inv(cur_c2w_dev), depth, ms.fx, ms.fy, ms.cx,
-                ms.cy, ms.frustum_edge)
-        else:
-            frustum = torch.arange(cap, device=dev) < self.cloud.n_points
+        with spans.span("map.frustum"):
+            cap = self.cloud.packed.shape[0]
+            if mp["frustum_feature_selection"] and not color_refine:
+                with spans.span("sync.inv"):  # the inverse's error check
+                    w2c = torch.linalg.inv(cur_c2w_dev)
+                frustum = pc.frustum_mask(
+                    self.cloud.pos, self.cloud.n_points, w2c, depth, ms.fx,
+                    ms.fy, ms.cx, ms.cy, ms.frustum_edge)
+            else:
+                frustum = torch.arange(cap, device=dev) < self.cloud.n_points
 
         # ---- one host fetch: densify counters + overlap scores
-        scores_dev = self._overlap_scores(cur_c2w_dev, depth)
+        with spans.span("map.window"):
+            scores_dev = self._overlap_scores(cur_c2w_dev, depth)
         fetch = []
         if n_acc:
             fetch += [torch.stack(n_acc).sum().float()[None],
                       self.cloud.n_points.float()[None]]
         if scores_dev is not None:
             fetch.append(scores_dev.float())
-        host = torch.cat(fetch).cpu().numpy() if fetch else np.zeros(0)
+        host = np.zeros(0)
+        if fetch:
+            fetch = torch.cat(fetch)
+            with spans.span("sync.map_fetch"):
+                host = fetch.cpu().numpy()
         n_acc_total = 0
         if n_acc:
             n_acc_total = int(host[0])
             self.n_points_host = int(host[1])
             host = host[2:]
+            if densified is not None:
+                densified.count("points_added", n_acc_total)
         scores = host if scores_dev is not None else None
 
         # ---- iteration budget
@@ -770,37 +845,23 @@ class Mapper:
         stats = np.zeros(3)
         outer_done = 0
         for outer in range(outer_iters):
-            sel = self.select_keyframes(scores if outer == 0 else None)
-            n_frames = len(sel) + 1
-            k = len(sel)
-            w_color, w_depth, w_rq, w_c2w, w_exp = self.store.gather_window(
-                sel, ms.f_max)
-            w_color[k], w_depth[k], w_rq[k], w_c2w[k] = (color, depth,
-                                                         r_query, cur_c2w_dev)
-            w_exp[k] = torch.as_tensor(self.exposure_feat, device=dev)
+            with spans.span("map.window"):
+                sel = self.select_keyframes(scores if outer == 0 else None)
+                n_frames = len(sel) + 1
+                k = len(sel)
+                w_color, w_depth, w_rq, w_c2w, w_exp = \
+                    self.store.gather_window(sel, ms.f_max)
+                w_color[k], w_depth[k], w_rq[k], w_c2w[k] = (
+                    color, depth, r_query, cur_c2w_dev)
+                w_exp[k] = spans.upload(self.exposure_feat, dev)
 
-            # ---- bundle adjustment once more than 4 keyframes exist
-            ba_on = bool(mp["BA"]) and len(self.keyframe_list) > 4
-            if ba_on != self.ms.ba:
-                self.ms = ms = self.ms._replace(ba=ba_on)
-            ba = None
-            if ba_on:
-                poses = [self.store.est_c2w[s] for s in sel] + [cur_c2w]
-                # padding slots get IDENTITY quaternions: a zero one is a
-                # NaN pose (2/|q|^2), which would poison every gradient
-                pad_cam = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
-                cams = np.stack([camera.tensor_from_pose_matrix(p)
-                                 for p in poses]
-                                + [pad_cam] * (ms.f_max - n_frames))
-                mask = np.zeros(ms.f_max, np.float32)
-                mask[:n_frames] = 1.0
-                mask[int(np.argmin([self.keyframe_list[s] for s in sel]))] = 0.0
-                ratio = mp["geo_iter_ratio"]
-                ba = dict(cams=torch.as_tensor(cams, device=dev),
-                          mask=torch.as_tensor(mask, device=dev),
-                          lr=float(mp["BA_cam_lr"]),
-                          lo=int(n_iters * (ratio + 0.2)),
-                          hi=int(n_iters * (ratio + 0.3)))
+                # ---- bundle adjustment once more than 4 keyframes exist
+                ba_on = bool(mp["BA"]) and len(self.keyframe_list) > 4
+                if ba_on != self.ms.ba:
+                    self.ms = ms = self.ms._replace(ba=ba_on)
+                ba = None
+                if ba_on:
+                    ba = self._ba_cameras(sel, cur_c2w, n_frames, n_iters)
 
             hook = None
             if self.vis_hook is not None:
@@ -810,40 +871,47 @@ class Mapper:
                     # the current map (the decoders step in place)
                     self.cloud = self.cloud._replace(packed=packed_now)
                     self.vis_hook(idx, it_prev, it_now, n_iters, c2w)
-            packed, stats_dev, exp_out, cams_out = map_optimize(
-                ms, self.rc, self.decoders, self.cloud.packed, self.index,
-                (w_color, w_depth, w_rq, w_c2w), n_frames,
-                ms.r_max // n_frames, frustum, lr_geo, lr_col, fix_color,
-                geo_bound, n_iters, generator=self.generator,
-                exposure=w_exp if ms.encode_exposure else None, cur_slot=k,
-                lr_exposure=0.001, ba=ba, n_live=self.n_points_host,
-                chunk=self.chunk, chunk_hook=hook)
+            with spans.span("map.optimize"):
+                packed, stats_dev, exp_out, cams_out = map_optimize(
+                    ms, self.rc, self.decoders, self.cloud.packed,
+                    self.index, (w_color, w_depth, w_rq, w_c2w), n_frames,
+                    ms.r_max // n_frames, frustum, lr_geo, lr_col,
+                    fix_color, geo_bound, n_iters, generator=self.generator,
+                    exposure=w_exp if ms.encode_exposure else None,
+                    cur_slot=k, lr_exposure=0.001, ba=ba,
+                    n_live=self.n_points_host, chunk=self.chunk,
+                    chunk_hook=hook)
             self.cloud = self.cloud._replace(packed=packed)
-            if ms.encode_exposure:
-                self.exposure_feat = exp_out[k].cpu().numpy()
-            stats = stats_dev.cpu().numpy()
+            with spans.span("sync.map_stats"):
+                if ms.encode_exposure:
+                    self.exposure_feat = exp_out[k].cpu().numpy()
+                stats = stats_dev.cpu().numpy()
+                cams_host = (cams_out[:n_frames].cpu().numpy() if ba_on
+                             else None)
             if ba_on:
                 # optimised keyframe poses back to the store; the refined
                 # current pose is the frame's estimate
                 new_poses = [camera.pose_matrix_from_tensor_np(c)
-                             for c in cams_out[:n_frames].cpu().numpy()]
+                             for c in cams_host]
                 for kk, s in enumerate(sel):
                     self.store.set_est_c2w(s, new_poses[kk])
                 cur_c2w = new_poses[k]
-                cur_c2w_dev = torch.as_tensor(cur_c2w, device=dev)
+                cur_c2w_dev = spans.upload(cur_c2w, dev)
             outer_done += 1
         if ms.encode_exposure:
             self.exposure_feat_all.append(self.exposure_feat.copy())
             # the colour decoder each exposure latent was trained against
-            self.color_decoder_snapshots.append(
-                {n: p.detach().cpu().clone()
-                 for n, p in self.decoders.col.state_dict().items()})
+            with spans.span("sync.map_stats"):
+                self.color_decoder_snapshots.append(
+                    {n: p.detach().cpu().clone()
+                     for n, p in self.decoders.col.state_dict().items()})
 
         # ---- keyframe bookkeeping
         if ((idx % mp["keyframe_every"] == 0 or idx == self.n_img - 2)
                 and idx not in self.keyframe_list
                 and np.isfinite(gt_c2w).all()):
-            self.store.append(color, depth, cur_c2w, self.exposure_feat)
+            with spans.span("map.keyframe_append"):
+                self.store.append(color, depth, cur_c2w, self.exposure_feat)
             self.keyframe_list.append(idx)
 
         out = {"geo_loss": float(stats[0]), "color_loss": float(stats[1]),

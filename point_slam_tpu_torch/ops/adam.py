@@ -19,6 +19,8 @@ from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
+from point_slam_tpu_torch.utils import spans
+
 Scalar = Union[float, torch.Tensor]
 
 
@@ -29,8 +31,9 @@ def init_state(params: Sequence[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
 
 def bias_corrections(t: Scalar, b1: float, b2: float, device):
     """(1 - b1^t, 1 - b2^t) as f32 tensors (not Python floats): the same
-    f32 pow and true division as the JAX package."""
-    tt = torch.as_tensor(t, dtype=torch.float32, device=device)
+    f32 pow and true division as the JAX package. A Python ``t`` is
+    uploaded (on CUDA a host sync)."""
+    tt = spans.upload(t, device, torch.float32)
     return 1.0 - b1 ** tt, 1.0 - b2 ** tt
 
 

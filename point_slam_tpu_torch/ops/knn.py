@@ -30,6 +30,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from point_slam_tpu_torch.utils import spans
+
 # Large-prime spatial hash (Teschner et al.). The JAX package multiplies in
 # int32 with wraparound, XORs, then takes a uint32 modulo; here the products
 # run in int64 and keep their low 32 bits, which is the same bit pattern.
@@ -340,7 +342,7 @@ def grid_knn(index, queries: torch.Tensor, k: int = 8):
     q = queries.float()
     nq = q.shape[0]
     table_size, c = index.table_size, index.max_per_cell
-    off = torch.as_tensor(_offsets27(), device=q.device)
+    off = spans.upload(_offsets27(), q.device)
     probe_cells = _cells(q, index.cell_size)[:, None, :] + off[None]
     hs = _hash_cells(probe_cells, table_size)                 # (Q,27)
     probe_ok = _dedup_probes(hs)
@@ -382,17 +384,25 @@ def grid_knn_subset(index, q_rays: torch.Tensor, need: torch.Tensor,
     q_rays (R, ns, 3); returns idx (R, ns, k) int64 and valid (R, ns, k),
     zeros/False on rays where need is False. The rays are picked by boolean
     indexing, so the launch sizes follow the number of needed rays (this
-    costs one device->host sync for the count).
+    costs one device->host sync for the count, and on CUDA one for each
+    scatter back). Span ``knn.fallback``, counting its rays in
+    ``rays_fallback``.
     """
-    r, ns, _ = q_rays.shape
-    idx = torch.zeros((r, ns, k), dtype=torch.long, device=q_rays.device)
-    valid = torch.zeros((r, ns, k), dtype=torch.bool, device=q_rays.device)
-    sub = q_rays[need]
-    if sub.shape[0]:
-        _, i_f, v_f = grid_knn(index, sub.reshape(-1, 3), k=k)
-        idx[need] = i_f.reshape(-1, ns, k)
-        valid[need] = v_f.reshape(-1, ns, k)
-    return idx, valid
+    with spans.span("knn.fallback"):
+        r, ns, _ = q_rays.shape
+        idx = torch.zeros((r, ns, k), dtype=torch.long, device=q_rays.device)
+        valid = torch.zeros((r, ns, k), dtype=torch.bool,
+                            device=q_rays.device)
+        with spans.span("sync.knn_subset"):
+            sub = q_rays[need]
+        spans.count("rays_fallback", sub.shape[0])
+        if sub.shape[0]:
+            _, i_f, v_f = grid_knn(index, sub.reshape(-1, 3), k=k)
+            with spans.span("sync.knn_scatter"):
+                idx[need] = i_f.reshape(-1, ns, k)
+            with spans.span("sync.knn_scatter"):
+                valid[need] = v_f.reshape(-1, ns, k)
+        return idx, valid
 
 
 def brute_knn(points: torch.Tensor, n_points, queries: torch.Tensor,
@@ -495,11 +505,11 @@ def _box_probes(q: torch.Tensor, cell_size, table_size: int, p_ray: int):
     ext = torch.clamp(cmax - start + 1, 3, 4)
     pattern = ((ext[:, 0] - 3) * 4 + (ext[:, 1] - 3) * 2
                + (ext[:, 2] - 3)).long()
-    off = torch.tensor([[x, y, z] for x in range(_BOX) for y in range(_BOX)
-                        for z in range(_BOX)], dtype=torch.int32, device=dev)
+    off = spans.upload([[x, y, z] for x in range(_BOX) for y in range(_BOX)
+                        for z in range(_BOX)], dev, torch.int32)
     h = _hash_cells(start[:, None, :] + off[None], table_size)  # (R,64)
-    perm = torch.as_tensor(perms, dtype=torch.long, device=dev)[pattern]
-    ok = torch.as_tensor(slot_ok, device=dev)[pattern]
+    perm = spans.upload(perms, dev, torch.long)[pattern]
+    ok = spans.upload(slot_ok, dev)[pattern]
     hp = torch.where(ok, torch.gather(h, 1, perm), table_size)
     hp = torch.where(_dedup_probes(hp), hp, table_size)
     return hp.to(torch.int32), compact
@@ -712,10 +722,12 @@ def ray_grid_knn(index, q_rays: torch.Tensor, k: int = 8, probes: int = 0):
     (selection only; recompute exactly from the winners), idx (R*ns, k)
     int64 (0 where invalid), valid (R*ns, k) bool, and compact (R,) bool,
     False where the ray's samples exceeded the probed box (route those
-    through grid_knn).
+    through grid_knn). Span ``knn.ray_topk``, counting its rays in
+    ``rays``.
     """
     p_ray = min(max(probes or _P_RAY_DEFAULT, 1), _BOX ** 3)
-    with torch.no_grad():
+    with torch.no_grad(), spans.span("knn.ray_topk"):
+        spans.count("rays", q_rays.shape[0])
         r, ns, _ = q_rays.shape
         q = q_rays.float()
         c = index.max_per_cell

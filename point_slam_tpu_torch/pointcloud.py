@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from point_slam_tpu_torch.ops import knn
+from point_slam_tpu_torch.utils import spans
 
 C_DIM = 32
 GEO_SL = slice(0, C_DIM)
@@ -244,8 +245,8 @@ def _linspace(start, stop, n: int, device) -> torch.Tensor:
     """jnp.linspace(start, stop, n) in f32 for scalar or 0-dim tensor
     endpoints, with its rounding: start*(1 - i/(n-1)) + stop*(i/(n-1)),
     and exactly ``stop`` last."""
-    start = torch.as_tensor(start, dtype=torch.float32, device=device)
-    stop = torch.as_tensor(stop, dtype=torch.float32, device=device)
+    start = spans.upload(start, device, torch.float32)
+    stop = spans.upload(stop, device, torch.float32)
     step = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
     return torch.cat([start * (1 - step) + stop * step, stop.reshape(1)])
 

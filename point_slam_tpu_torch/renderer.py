@@ -21,6 +21,7 @@ from point_slam_tpu_torch.common.compositing import raw2outputs
 from point_slam_tpu_torch.common.image import masked_max, masked_mean
 from point_slam_tpu_torch.models import decoders as D
 from point_slam_tpu_torch.ops import knn
+from point_slam_tpu_torch.utils import spans
 
 
 class RenderConfig(NamedTuple):
@@ -107,7 +108,8 @@ def build_z_vals(rc: RenderConfig, index, rays_o, rays_d, gt_depth,
         # others' results would be discarded); the subset costs one
         # device->host sync for its size
         z_zero = torch.zeros((r, ns), device=dev)
-        sub = torch.nonzero(~(gt_depth > 0)).squeeze(1)
+        with spans.span("sync.near_pcl"):
+            sub = torch.nonzero(~(gt_depth > 0)).squeeze(1)
         if sub.numel():
             z_sub, invalid = pc.sample_near_pcl(
                 index, rays_o.detach()[sub], rays_d.detach()[sub],

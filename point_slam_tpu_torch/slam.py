@@ -13,9 +13,18 @@ Panels (``utils/visualizer.py``): after each mapped frame into
 into ``rendered_image/``), or with ``mapping.vis_inside`` inside the
 mapping loop instead; after each tracked, unmapped frame into
 ``tracking_vis/`` (and inside the loop with ``tracking.vis_inside``).
-Frame 0, mapped before the loop, gets none, as in the JAX package. With
-``cuda.profile_dir`` the run is traced by ``torch.profiler`` into a Chrome
-trace there.
+Frame 0, mapped before the loop, gets none, as in the JAX package.
+
+Spans (``utils/spans.py``): ``slam.spans`` records the program's stages,
+a span each (``frame`` > ``reader.wait``, ``track_frame``, ``map_frame``,
+``log``; the tracker's and mapper's iterations and their stages inside;
+``sync.*`` around each host read of the device), with counters, on the
+profiler's clock, once ``slam.spans.enable()`` is called; the records are
+``slam.spans.records()`` after the run. Recording is off by default. The
+schedule's spans are always timed, and give ``timing`` and
+``frame_times``. With ``cuda.profile_dir`` the run is traced by
+``torch.profiler`` into a Chrome trace there, with the spans recorded and
+each shown as a range of its name.
 
 Under a process group (``parallel/dist.py``; ``cuda.data_parallel`` must
 equal its size) every rank runs this schedule on its own replica and the
@@ -37,6 +46,7 @@ from point_slam_tpu_torch.mapper import Mapper
 from point_slam_tpu_torch.models import decoders as D
 from point_slam_tpu_torch.parallel import dist as pdist
 from point_slam_tpu_torch.tracker import Tracker
+from point_slam_tpu_torch.utils import spans
 
 
 def update_cam(cfg) -> None:
@@ -114,15 +124,18 @@ class PointSLAM:
                   f"{'host' if self.mapper.store.host_mode else 'device'} "
                   "ring", flush=True)
         self.tracker = Tracker(cfg, self.device)
+        # the program's spans and counters; recording off until enabled
+        self.spans = spans.Spans()
         self.estimate_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
         self.gt_c2w_list = np.zeros((self.n_img, 4, 4), np.float32)
         self.n_done = 0          # frames 0..n_done-1 have poses
-        # wall-clock buckets (disjoint; sum to wall_active): track/map the
-        # two optimisation phases, wait = blocked on the prefetch thread,
-        # io = direct dataset reads on the main thread (frame 0), log = the
-        # end-of-frame panels, the metrics sink, checkpoints and
-        # point-cloud dumps, other = the
-        # per-frame remainder
+        # wall-clock buckets (disjoint; sum to wall_active), each the sum
+        # of the walls of the schedule's spans of its name: track/map the
+        # two optimisation phases (track_frame, map_frame), wait = blocked
+        # on the prefetch thread (reader.wait), io = direct dataset reads
+        # on the main thread (reader.io, frame 0), log = the end-of-frame
+        # panels, the metrics sink, checkpoints and point-cloud dumps
+        # (log), other = the rest of each frame span
         self.timing: Dict[str, float] = {
             "track": 0.0, "map": 0.0, "io": 0.0, "wait": 0.0, "log": 0.0,
             "other": 0.0}
@@ -175,9 +188,9 @@ class PointSLAM:
             self.tracker.vis_hook = track_hook
 
     def _frame(self, idx):
-        t0 = time.perf_counter()
-        _, color, depth, c2w = self.dataset[idx]
-        self.timing["io"] += time.perf_counter() - t0
+        with self.spans.timed("reader.io", frame=idx) as sp:
+            _, color, depth, c2w = self.dataset[idx]
+        self.timing["io"] += sp.s
         return color, depth, c2w
 
     def run(self, stop: Optional[int] = None,
@@ -185,10 +198,12 @@ class PointSLAM:
         """Track and map frames 0..stop (all of them by default), or, with
         ``resume_from`` (a checkpoint path), the frames after the
         checkpoint's. With ``cuda.profile_dir`` the whole run is traced and
-        the trace written there, also when the run fails."""
+        the trace written there, also when the run fails, with the spans
+        recorded and shown as ranges."""
         profile_dir = self.cfg["cuda"].get("profile_dir")
         if not profile_dir or not self.writer:
             return self._run(stop, resume_from)
+        self.spans.enable(ranges=True)
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -214,10 +229,7 @@ class PointSLAM:
         t_run0 = time.perf_counter()
         cfg = self.cfg
         n = self.n_img if stop is None else min(stop + 1, self.n_img)
-        every = cfg["mapping"]["every_frame"]
-        lazy = cfg["mapping"]["lazy_start"] or 0
-        ckpt_freq = cfg["mapping"].get("ckpt_freq") or 0
-        tm = self.timing
+        tm, sp = self.timing, self.spans
 
         if resume_from:
             start = restore_slam(self, load_checkpoint(resume_from))
@@ -227,14 +239,15 @@ class PointSLAM:
                       flush=True)
         else:
             start = 1
-            color, depth, gt_c2w = self._frame(0)
-            self.estimate_c2w_list[0] = gt_c2w
-            self.gt_c2w_list[0] = gt_c2w
-            t0 = time.perf_counter()
-            st = self.mapper.map_frame(0, color, depth, gt_c2w, gt_c2w)
-            t_map = time.perf_counter() - t0
-            tm["map"] += t_map
-            self.frame_times[0] = {"track": 0.0, "map": t_map}
+            with sp.span("frame", frame=0):
+                color, depth, gt_c2w = self._frame(0)
+                self.estimate_c2w_list[0] = gt_c2w
+                self.gt_c2w_list[0] = gt_c2w
+                with sp.timed("map_frame", frame=0) as m:
+                    st = self.mapper.map_frame(0, color, depth, gt_c2w,
+                                               gt_c2w)
+                tm["map"] += m.s
+                self.frame_times[0] = {"track": 0.0, "map": m.s}
             if self.verbose:
                 print(f"[map] frame 0: +{st['n_added']} locations, "
                       f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}",
@@ -256,96 +269,30 @@ class PointSLAM:
 
         prefetcher = FramePrefetcher(
             self.dataset, depth=int(cfg["cuda"].get("prefetch_depth", 4)),
-            start=start, stop=n, stage=_stage, fetch=self.dataset.wire)
+            start=start, stop=n, stage=_stage, fetch=self.dataset.wire,
+            spans=sp)
         pf_iter = iter(prefetcher)
         while True:
-            t0 = time.perf_counter()
-            try:
-                idx, color, depth, radius, gt_c2w = next(pf_iter)
-            except StopIteration:
-                break
-            tm["wait"] += time.perf_counter() - t0
-            t_frame0 = time.perf_counter()
-            acc0 = tm["track"] + tm["map"] + tm["log"]
-            self.gt_c2w_list[idx] = gt_c2w
-            ef = 1 if (lazy and idx <= lazy) else every
-            if self.writer and self.track_vis.vis_inside:
-                self._track_vis_frame = {idx: (depth, color)}
-            if self.writer and self.map_vis.vis_inside:
-                self._map_vis_frame = {idx: (depth, color)}
-
-            t0 = time.perf_counter()
-            res = self.tracker.track_frame(
-                idx, color, depth, gt_c2w, self.estimate_c2w_list,
-                self.mapper, radius[1],
-                exposure_feat=self.mapper.exposure_feat)
-            t_track = time.perf_counter() - t0
-            tm["track"] += t_track
-            self.estimate_c2w_list[idx] = res["c2w"]
-            if res.get("tracked"):
-                if self.verbose:
-                    print(f"[track] frame {idx}: loss "
-                          f"{res['first_loss']:.2f}->{res['best_loss']:.2f}",
-                          flush=True)
-                t0 = time.perf_counter()
-                self.mlog.log({"idx_track": idx,
-                               "track_first_loss": res["first_loss"],
-                               "track_best_loss": res["best_loss"]})
-                tm["log"] += time.perf_counter() - t0
-
-            t_map = 0.0
-            if idx % ef == 0 or idx == n - 1:
-                refine = (cfg["mapping"]["color_refine"] and idx == n - 1
-                          and idx == self.n_img - 1)
-                t0 = time.perf_counter()
-                st = self.mapper.map_frame(idx, color, depth, gt_c2w,
-                                           self.estimate_c2w_list[idx],
-                                           color_refine=refine,
-                                           radius=radius)
-                t_map = time.perf_counter() - t0
-                tm["map"] += t_map
-                # BA refines the current pose during mapping
-                self.estimate_c2w_list[idx] = st["cur_c2w"]
-                if self.verbose:
-                    print(f"[map] frame {idx}: +{st['n_added']} locations, "
-                          f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}, "
-                          f"col {st['color_loss']:.3f}, "
-                          f"pts {st['n_points']}", flush=True)
-                t0 = time.perf_counter()
-                self.mlog.log({"idx_map": idx, **{
-                    k: v for k, v in st.items() if k != "cur_c2w"}})
-                # with vis_inside the panels fired inside the loop
-                if self.writer and not self.map_vis.vis_inside:
-                    self.mlog.log_image("mapping_vis", self.map_vis.vis(
-                        idx, st["n_iters"] - 1, st["n_iters"], self.mapper,
-                        self.estimate_c2w_list[idx], depth, color,
-                        save_rendered_image=cfg["mapping"][
-                            "save_rendered_image"],
-                        r_query=radius[1]), step=idx)
-                if ckpt_freq and idx % ckpt_freq == 0 and idx != n - 1:
-                    self.checkpoint(os.path.join(
-                        self.output, "ckpts", f"{idx:05d}.npz"), idx)
-                # the point-cloud mirror every 300 frames (the files are
-                # written only at the end)
-                if idx > 0 and idx % 300 == 0 and idx != n - 1:
-                    self._dump_point_cloud(log_points_step=idx,
-                                           write_files=False)
-                tm["log"] += time.perf_counter() - t0
-            elif res.get("tracked") and self.writer:
-                t0 = time.perf_counter()
-                self.mlog.log_image("tracking_vis", self.track_vis.vis(
-                    idx, self.tracker.iters - 1, self.tracker.iters,
-                    self.mapper, self.estimate_c2w_list[idx], depth, color,
-                    r_query=radius[1]), step=idx)
-                tm["log"] += time.perf_counter() - t0
-            self.frame_times[idx] = {"track": t_track, "map": t_map}
-            tm["other"] += (time.perf_counter() - t_frame0
+            # the last frame span only waits for the reader's end: it has
+            # no frame
+            with sp.timed("frame") as fr:
+                with sp.timed("reader.wait") as wait:
+                    item = next(pf_iter, None)
+                tm["wait"] += wait.s
+                if item is None:
+                    break
+                idx, color, depth, radius, gt_c2w = item
+                fr.set_frame(idx)
+                wait.set_frame(idx)
+                acc0 = tm["track"] + tm["map"] + tm["log"]
+                self._track_and_map(idx, n, color, depth, radius, gt_c2w)
+            tm["other"] += (fr.s - wait.s
                             - (tm["track"] + tm["map"] + tm["log"] - acc0))
 
         self.n_done = n
-        t0 = time.perf_counter()
-        self._dump_point_cloud(log_points_step=n - 1)
-        tm["log"] += time.perf_counter() - t0
+        with sp.timed("log") as lg:
+            self._dump_point_cloud(log_points_step=n - 1)
+        tm["log"] += lg.s
         tm["prefetch_fetch"] = prefetcher.time_fetch
         tm["prefetch_stage"] = prefetcher.time_stage
         tm["wall_active"] = time.perf_counter() - t_run0
@@ -362,6 +309,85 @@ class PointSLAM:
             "estimate_c2w_list": self.estimate_c2w_list[:n],
             "gt_c2w_list": self.gt_c2w_list[:n],
         }
+
+    def _track_and_map(self, idx: int, n: int, color, depth, radius,
+                       gt_c2w) -> None:
+        """Frame ``idx`` of a run of ``n`` frames inside its frame span:
+        track it, map it on the schedule's frames, log."""
+        cfg, tm, sp = self.cfg, self.timing, self.spans
+        mp = cfg["mapping"]
+        lazy = mp["lazy_start"] or 0
+        ef = 1 if (lazy and idx <= lazy) else mp["every_frame"]
+        ckpt_freq = mp.get("ckpt_freq") or 0
+        self.gt_c2w_list[idx] = gt_c2w
+        if self.writer and self.track_vis.vis_inside:
+            self._track_vis_frame = {idx: (depth, color)}
+        if self.writer and self.map_vis.vis_inside:
+            self._map_vis_frame = {idx: (depth, color)}
+
+        with sp.timed("track_frame", frame=idx) as tr:
+            res = self.tracker.track_frame(
+                idx, color, depth, gt_c2w, self.estimate_c2w_list,
+                self.mapper, radius[1],
+                exposure_feat=self.mapper.exposure_feat)
+        tm["track"] += tr.s
+        self.estimate_c2w_list[idx] = res["c2w"]
+        if res.get("tracked"):
+            if self.verbose:
+                print(f"[track] frame {idx}: loss "
+                      f"{res['first_loss']:.2f}->{res['best_loss']:.2f}",
+                      flush=True)
+            with sp.timed("log", frame=idx) as lg:
+                self.mlog.log({"idx_track": idx,
+                               "track_first_loss": res["first_loss"],
+                               "track_best_loss": res["best_loss"]})
+            tm["log"] += lg.s
+
+        t_map = 0.0
+        if idx % ef == 0 or idx == n - 1:
+            refine = (mp["color_refine"] and idx == n - 1
+                      and idx == self.n_img - 1)
+            with sp.timed("map_frame", frame=idx) as mf:
+                st = self.mapper.map_frame(idx, color, depth, gt_c2w,
+                                           self.estimate_c2w_list[idx],
+                                           color_refine=refine,
+                                           radius=radius)
+            t_map = mf.s
+            tm["map"] += t_map
+            # BA refines the current pose during mapping
+            self.estimate_c2w_list[idx] = st["cur_c2w"]
+            if self.verbose:
+                print(f"[map] frame {idx}: +{st['n_added']} locations, "
+                      f"{st['n_iters']} iters, geo {st['geo_loss']:.3f}, "
+                      f"col {st['color_loss']:.3f}, "
+                      f"pts {st['n_points']}", flush=True)
+            with sp.timed("log", frame=idx) as lg:
+                self.mlog.log({"idx_map": idx, **{
+                    k: v for k, v in st.items() if k != "cur_c2w"}})
+                # with vis_inside the panels fired inside the loop
+                if self.writer and not self.map_vis.vis_inside:
+                    self.mlog.log_image("mapping_vis", self.map_vis.vis(
+                        idx, st["n_iters"] - 1, st["n_iters"], self.mapper,
+                        self.estimate_c2w_list[idx], depth, color,
+                        save_rendered_image=mp["save_rendered_image"],
+                        r_query=radius[1]), step=idx)
+                if ckpt_freq and idx % ckpt_freq == 0 and idx != n - 1:
+                    self.checkpoint(os.path.join(
+                        self.output, "ckpts", f"{idx:05d}.npz"), idx)
+                # the point-cloud mirror every 300 frames (the files are
+                # written only at the end)
+                if idx > 0 and idx % 300 == 0 and idx != n - 1:
+                    self._dump_point_cloud(log_points_step=idx,
+                                           write_files=False)
+            tm["log"] += lg.s
+        elif res.get("tracked") and self.writer:
+            with sp.timed("log", frame=idx) as lg:
+                self.mlog.log_image("tracking_vis", self.track_vis.vis(
+                    idx, self.tracker.iters - 1, self.tracker.iters,
+                    self.mapper, self.estimate_c2w_list[idx], depth, color,
+                    r_query=radius[1]), step=idx)
+            tm["log"] += lg.s
+        self.frame_times[idx] = {"track": tr.s, "map": t_map}
 
     def checkpoint(self, path: str, idx: Optional[int] = None) -> None:
         """Rank 0 writes the checkpoint ``path``; every rank then waits for
@@ -380,15 +406,17 @@ class PointSLAM:
         if not self.writer:
             return
         m = self.mapper
-        ni = int(m.cloud.n_inputs)
-        cloud_pos = m.cloud.input_pos[:ni].cpu().numpy()
-        cloud_rgb = m.cloud.input_rgb[:ni].cpu().numpy()
+        with spans.span("sync.point_cloud"):
+            ni = int(m.cloud.n_inputs)
+            cloud_pos = m.cloud.input_pos[:ni].cpu().numpy()
+            cloud_rgb = m.cloud.input_rgb[:ni].cpu().numpy()
+            npc = (m.cloud.pos[:m.n_points_host].cpu().numpy()
+                   if write_files else None)
         if write_files:
             from point_slam_tpu_torch.utils.ply import write_ply
             np.save(os.path.join(self.output, "final_point_cloud"),
                     np.hstack([cloud_pos, cloud_rgb]))
-            np.save(os.path.join(self.output, "npc_cloud"),
-                    m.cloud.pos[:m.n_points_host].cpu().numpy())
+            np.save(os.path.join(self.output, "npc_cloud"), npc)
             ply_path = os.path.join(self.output, "final_point_cloud.ply")
             write_ply(ply_path, cloud_pos, colors=cloud_rgb / 255.0)
             self.mlog.log({"final_point_cloud_ply": ply_path})

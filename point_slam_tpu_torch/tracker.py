@@ -6,10 +6,11 @@ the edge-cropped image, or with ``sample_with_color_grad`` from the frame's
 top-gradient pool), renders them with neighbour distances differentiable in
 the pose (and the current exposure latent), takes the robust depth (and
 colour) L1 loss and steps Adam on the (w,x,y,z) quaternion and the
-translation. The loop keeps the minimum-loss candidate on the device (no
-host sync per iteration): with separate_LR it stores the pre-step camera,
-otherwise the post-step one, and the quaternion gets 0.2x the learning
-rate. The motion model and the quaternion hemisphere alignment against the
+translation. The loop keeps the minimum-loss candidate on the device (the
+host reads no loss per iteration; on CUDA it syncs on the uploads and
+reads that ``mapper.py`` lists): with separate_LR it stores the pre-step
+camera, otherwise the post-step one, and the quaternion gets 0.2x the
+learning rate. The motion model and the quaternion hemisphere alignment against the
 GT pose run on the host.
 
 With ``cuda.bf16_features`` the loop renders from the cloud's bf16 view,
@@ -21,6 +22,12 @@ observes, so the loop's numbers do not change.
 Under a process group (``parallel/dist.py``) the pixel batch, padded to a
 multiple of ``cuda.data_parallel``, is split over the ranks: each renders
 its block, and the pose gradient and the loss are summed over the ranks.
+
+Spans (``utils/spans.py``, under the schedule's ``track_frame``):
+``track.setup``, then a ``track.iter`` an iteration with ``track.sample``,
+``track.render`` (the loss), ``track.backward`` and ``track.step`` (Adam
+and the best-loss choice), and ``sync.pose_read`` for the one host fetch a
+frame; ``sync.upload`` around each upload from the host.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from point_slam_tpu_torch import renderer as R
 from point_slam_tpu_torch.common import camera, image, sampling
 from point_slam_tpu_torch.ops import adam
 from point_slam_tpu_torch.parallel import dist as pdist
+from point_slam_tpu_torch.utils import spans
 
 
 class TrackerStatic(NamedTuple):
@@ -164,44 +172,51 @@ def track_optimize(ts: TrackerStatic, rc: R.RenderConfig, dec, packed, index,
     quad = cam_init[:4].clone().requires_grad_(True)
     trans = cam_init[4:].clone().requires_grad_(True)
     state = adam.init_state([quad, trans])
-    best_loss = torch.tensor(1e20, device=dev)
+    best_loss = spans.upload(1e20, dev)
     best_cam = cam_init.clone()
     first_loss = torch.zeros((), device=dev)
     lr_q = lr * 0.2 if ts.separate_lr else lr
     for it in range(n_iters):
-        ok = fill = None
-        if ts.sample_with_color_grad:
-            scores, fill = draws[it] if draws is not None else (None, None)
-            i, j, ok = sample_pool_pixels(ts, *pool, generator, scores)
-        elif draws is not None:
-            i, j, fill = draws[it]
-        else:
-            i, j = sample_pixels(ts, generator, dev)
-        if fill is None:
-            fill = R.draw_fill(generator, dev)
-        cam = torch.cat([quad, trans])
-        loss = tracking_loss(ts, rc, dec, packed, index, gt_color, gt_depth,
-                             r_query_map, cam, i, j, fill, ok,
-                             exposure_feat)[0]
-        g_q, g_t = torch.autograd.grad(loss, [quad, trans])
-        loss = loss.detach()
-        pdist.all_reduce_flat([g_q, g_t, loss])
-        with torch.no_grad():
-            cam_vec = cam.detach()
-            (new_q, new_t), state = adam.update(
-                [quad.detach(), trans.detach()], [g_q, g_t], state,
-                float(it + 1), [lr_q, lr])
-            stored = cam_vec if ts.separate_lr else torch.cat([new_q, new_t])
-            better = loss.detach() < best_loss
-            best_loss = torch.where(better, loss.detach(), best_loss)
-            best_cam = torch.where(better, stored, best_cam)
-            if it == 0:
-                first_loss = loss.detach()
-        quad = new_q.requires_grad_(True)
-        trans = new_t.requires_grad_(True)
-        if hook is not None and (it + 1) % hook_every == 0 \
-                and it + 1 < n_iters:
-            hook(it + 1, torch.cat([quad, trans]).detach())
+        with spans.span("track.iter", it=it):
+            with spans.span("track.sample"):
+                ok = fill = None
+                if ts.sample_with_color_grad:
+                    scores, fill = (draws[it] if draws is not None
+                                    else (None, None))
+                    i, j, ok = sample_pool_pixels(ts, *pool, generator,
+                                                  scores)
+                elif draws is not None:
+                    i, j, fill = draws[it]
+                else:
+                    i, j = sample_pixels(ts, generator, dev)
+                if fill is None:
+                    fill = R.draw_fill(generator, dev)
+            with spans.span("track.render"):
+                cam = torch.cat([quad, trans])
+                loss = tracking_loss(ts, rc, dec, packed, index, gt_color,
+                                     gt_depth, r_query_map, cam, i, j, fill,
+                                     ok, exposure_feat)[0]
+            with spans.span("track.backward"):
+                g_q, g_t = torch.autograd.grad(loss, [quad, trans])
+            with spans.span("track.step"), torch.no_grad():
+                loss = loss.detach()
+                pdist.all_reduce_flat([g_q, g_t, loss])
+                cam_vec = cam.detach()
+                (new_q, new_t), state = adam.update(
+                    [quad.detach(), trans.detach()], [g_q, g_t], state,
+                    float(it + 1), [lr_q, lr])
+                stored = (cam_vec if ts.separate_lr
+                          else torch.cat([new_q, new_t]))
+                better = loss < best_loss
+                best_loss = torch.where(better, loss, best_loss)
+                best_cam = torch.where(better, stored, best_cam)
+                if it == 0:
+                    first_loss = loss
+            quad = new_q.requires_grad_(True)
+            trans = new_t.requires_grad_(True)
+            if hook is not None and (it + 1) % hook_every == 0 \
+                    and it + 1 < n_iters:
+                hook(it + 1, torch.cat([quad, trans]).detach())
     final_cam = torch.cat([quad, trans]).detach()
     return best_cam, final_cam, first_loss, best_loss
 
@@ -267,15 +282,16 @@ class Tracker:
         c2w (4,4) numpy."""
         if idx <= 1 or self.gt_camera:
             return {"c2w": np.asarray(gt_c2w, np.float32), "tracked": False}
-        cam_init = torch.as_tensor(
-            self.initial_pose(idx, estimate_c2w_list, gt_c2w),
-            device=self.device)
-        pool = (candidate_pool(self.ts, gt_color, gt_depth)
-                if self.ts.sample_with_color_grad else None)
-        exp = (torch.as_tensor(np.asarray(exposure_feat, np.float32),
-                               device=self.device)
-               if exposure_feat is not None and self.rc.encode_exposure
-               else None)
+        with spans.span("track.setup"):
+            cam_init = spans.upload(
+                self.initial_pose(idx, estimate_c2w_list, gt_c2w),
+                self.device)
+            pool = (candidate_pool(self.ts, gt_color, gt_depth)
+                    if self.ts.sample_with_color_grad else None)
+            exp = (spans.upload(np.asarray(exposure_feat, np.float32),
+                                self.device)
+                   if exposure_feat is not None and self.rc.encode_exposure
+                   else None)
         hook = None
         if self.vis_hook is not None:
             def hook(it, cam):
@@ -287,7 +303,9 @@ class Tracker:
             exposure_feat=exp, hook=hook, hook_every=self.inside_freq)
         # one host fetch per frame
         vals = torch.cat([camera.pose_matrix_from_tensor(best_cam).reshape(-1),
-                          first_loss[None], best_loss[None]]).cpu().numpy()
+                          first_loss[None], best_loss[None]])
+        with spans.span("sync.pose_read"):
+            vals = vals.cpu().numpy()
         c2w = np.eye(4, dtype=np.float32)
         c2w[:3, :4] = vals[:12].reshape(3, 4)
         return {"c2w": c2w, "tracked": True,

@@ -2,21 +2,26 @@
 
 A copy of ``point_slam_tpu.utils.prefetch``: a worker thread fetches the
 next frame(s) and stages them on the device while it computes the current
-one.
+one. The worker times each fetch and stage as a span of the run's
+recorder (``utils/spans.py``: ``reader.fetch``, ``reader.stage``, on the
+worker's thread, recorded once the recorder is enabled); ``time_fetch``
+and ``time_stage`` are their walls' totals, which the metrics sink reads
+through ``PointSLAM.timing``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-import time
 from typing import Iterator, Optional, Tuple
+
+from point_slam_tpu_torch.utils.spans import Spans
 
 
 class FramePrefetcher:
     def __init__(self, dataset, depth: int = 2,
                  start: int = 0, stop: Optional[int] = None,
-                 stage=None, fetch=None):
+                 stage=None, fetch=None, spans: Optional[Spans] = None):
         """``stage``: optional callable applied to each item IN THE WORKER
         THREAD — used to copy the frame to the device so the host->device
         transfer overlaps device compute instead of landing on the critical
@@ -24,12 +29,16 @@ class FramePrefetcher:
 
         ``fetch``: optional callable ``index -> item`` replacing
         ``dataset[index]`` — used to fetch the compact wire form
-        (dataset.wire) so the staged transfer rides at sensor width."""
+        (dataset.wire) so the staged transfer rides at sensor width.
+
+        ``spans``: the recorder the worker's spans go to (a recorder of
+        its own, off, by default)."""
         self.dataset = dataset
         self._fetch = fetch if fetch is not None else dataset.__getitem__
         self.stop_idx = len(dataset) if stop is None else min(stop, len(dataset))
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stage = stage
+        self.spans = spans if spans is not None else Spans()
         # worker-side wall spent fetching / staging (overlapped with device
         # compute; attributes the consumer's blocked-on-prefetch time)
         self.time_fetch = 0.0
@@ -44,13 +53,13 @@ class FramePrefetcher:
             if self._stopped.is_set():
                 return
             try:
-                t0 = time.perf_counter()
-                item = self._fetch(i)
-                t1 = time.perf_counter()
-                self.time_fetch += t1 - t0
+                with self.spans.timed("reader.fetch", frame=i) as sp:
+                    item = self._fetch(i)
+                self.time_fetch += sp.s
                 if self._stage is not None:
-                    item = self._stage(item)
-                    self.time_stage += time.perf_counter() - t1
+                    with self.spans.timed("reader.stage", frame=i) as sp:
+                        item = self._stage(item)
+                    self.time_stage += sp.s
             except Exception as e:  # propagate through the queue
                 self.q.put(("error", e))
                 return
