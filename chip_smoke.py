@@ -570,6 +570,7 @@ def phase_a(dev):
             for r in RAY_BATCHES}
     results["row_adam"] = phase_a_row_adam(dev, cfg, cloud, n, depth_d,
                                            c2w_d)
+    results["multi_adam"] = phase_a_multi_adam(dev, mapper, n)
     return results
 
 
@@ -632,6 +633,61 @@ def phase_a_row_adam(dev, cfg, cloud, n_live, depth_d, c2w_d):
                      "device_ms": dev_ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by}
     return out
+
+
+def phase_a_multi_adam(dev, mapper, n_live):
+    """multi_adam over the mapper's leaves (the packed buffer stepped over
+    its live rows, each colour-decoder tensor) as map_optimize steps them:
+    p, m, v EQUAL to the functional step (0 ulp), in one launch."""
+    import torch
+    from point_slam_tpu_torch.ops import adam
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cap, w = mapper.cloud.packed.shape
+    params = ([mapper.cloud.packed.clone()]
+              + [p.detach().clone() for p in mapper.decoders.col.parameters()])
+
+    def draw(scale):
+        out = [scale * torch.randn(p.shape, generator=gen, device=dev)
+               for p in params]
+        out[0][n_live:] = 0.0          # no gradient past the cloud
+        return out
+    grads, m = draw(1e-3), draw(1e-4)
+    v = [x.abs() for x in draw(1e-3)]
+    t_row = torch.full((w,), 37.0, device=dev)
+    t_row[32:64] = 12.0
+    lr_row = torch.zeros(w, device=dev)
+    lr_row[:32], lr_row[32:64] = 0.03, 0.005
+    ts, lrs = [t_row] + [12.0] * (len(params) - 1), [lr_row] + [
+        0.001] * (len(params) - 1)
+    rows = [n_live] + [None] * (len(params) - 1)
+    want_p, want = adam.update(params, grads, {"m": m, "v": v}, ts, lrs)
+    buf = {k: [x.clone() for x in xs] for k, xs in
+           (("p", params), ("m", m), ("v", v))}
+    before = adam.LAUNCHES["multi_adam"]
+    adam.update(buf["p"], grads, buf, ts, lrs, in_place=True, rows=rows)
+    torch.cuda.synchronize()
+    launches = adam.LAUNCHES["multi_adam"] - before
+    pairs = list(zip(buf["p"] + buf["m"] + buf["v"],
+                     want_p + want["m"] + want["v"]))
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    run = lambda: adam.update(buf["p"], grads, buf, ts, lrs, in_place=True,
+                              rows=rows)
+    plain = lambda: adam.update(params, grads, {"m": m, "v": v}, ts, lrs)
+    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+    elems = n_live * w + sum(p.numel() for p in params[1:])
+    # p, g, m, v read and p, m, v written once, over the rows stepped
+    b_ms, b_by = bound(7 * elems * 4, elems * ADAM_FLOPS)
+    dev_ms = device_ms(run, b_ms)
+    print(f"[A] multi_adam over {len(params)} tensors (the packed leaf's "
+          f"{n_live} live rows of {cap}, {len(params) - 1} colour-decoder "
+          f"tensors) in {launches} launch: p/m/v equal to the functional "
+          f"step: {equal} (tolerance 0); {ms:.4f} ms through the wrapper "
+          f"(device {shown(dev_ms)}), the functional step over every row "
+          f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    if not equal or launches != 1:
+        raise AssertionError("multi_adam differs from the functional step")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def run_slam(dev, cfg, setup=None, input_folder=None, stop=None):

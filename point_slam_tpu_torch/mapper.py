@@ -372,11 +372,14 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     outside which the camera learning rate is 0; the cameras take the
     geometry step count and replace the window poses.
 
-    With ``ms.fused_adam`` the packed leaf steps through
-    ``adam.update_rows`` (the CUDA kernel on the card, in place) with the
-    frustum as its row mask, over its first ``n_live`` rows only (the
-    cloud's points; all rows when None): rows past the cloud have zero
-    gradient, moments and mask, which Adam leaves bit for bit as they are.
+    Each iteration's step is one ``adam.update(..., in_place=True)`` over
+    every trained leaf (on the card one ``multi_adam`` launch), with the
+    packed gradient masked by the frustum and the packed leaf stepped over
+    its first ``n_live`` rows only (the cloud's points; all rows when
+    None): rows past the cloud have zero gradient and moments, which Adam
+    leaves bit for bit as they are. With ``ms.fused_adam`` the packed leaf
+    steps instead through ``adam.update_rows`` (K4 on the card, in place)
+    with the frustum as its row mask, over the same rows.
 
     The batch (and ``draws``) is the whole padded batch of every rank of
     the process group (``parallel.dist``): each rank renders its block and
@@ -397,9 +400,8 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
     dev = packed.device
     col_params = list(dec.col.parameters())
     geo_params = [] if ms.fix_geo_decoder else list(dec.geo.parameters())
-    # the fused path updates the packed leaf in place: own a copy
-    leaves = ([packed.detach().clone() if ms.fused_adam else packed.detach()]
-              + col_params + geo_params)
+    # the step updates the packed leaf in place: own a copy
+    leaves = [packed.detach().clone()] + col_params + geo_params
     n_col = len(col_params)
     n_dec = n_col + len(geo_params)
     i_exp = i_cam = None
@@ -414,11 +416,25 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
         ba_mask = ba["mask"].float()[:, None]
     state = adam.init_state(leaves)
     geo_cols, col_cols = _column_rows(dev)
-    rest_cols = 1.0 - geo_cols - col_cols
+    is_col = col_cols > 0
     lr_rows = [geo_cols * lrs[1] + col_cols * lrs[2]
                for lrs in (lr_geo_stage, lr_color_stage)]
+    # zero gradients of the leaves a stage leaves unused, made once: the
+    # step never writes a gradient (under a process group each iteration
+    # makes its own, since the all-reduce sums into them)
+    zeros: Dict[int, torch.Tensor] = {}
+
+    def zero_grad(k: int) -> torch.Tensor:
+        if k in zeros:
+            return zeros[k]
+        z = torch.zeros_like(leaves[k])
+        if not pdist.active():
+            zeros[k] = z
+        return z
+
     frustum_f = frustum.float()
     n_rows = packed.shape[0] if n_live is None else n_live
+    rows = [n_rows] + [None] * (len(leaves) - 1)
     if ms.fused_adam:
         # the live prefix of the packed leaf, its moments and its mask:
         # contiguous views that update_rows writes in place; the leaf keeps
@@ -457,14 +473,15 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
             with spans.span("map.backward"):
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             with spans.span("map.step"), torch.no_grad():
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(leaves, grads)]
+                grads = [zero_grad(k) if g is None else g
+                         for k, g in enumerate(grads)]
                 stats = torch.stack([geo_l.detach(), col_l.detach(),
                                      n_mask.float()])
                 pdist.all_reduce_flat([grads[0][:n_rows]] + grads[1:]
                                       + [stats])
-                for k in range(1, 1 + n_col):
-                    grads[k] = grads[k] * fix_color
+                if fix_color != 1.0:          # x * 1.0 is x
+                    for k in range(1, 1 + n_col):
+                        grads[k] = grads[k] * fix_color
                 if i_exp is not None:
                     grads[i_exp] = grads[i_exp] * exp_onehot
                 if i_cam is not None:
@@ -473,8 +490,7 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                 lrs = lr_geo_stage if stage_geo else lr_color_stage
                 t_geo = float(it + 1)
                 t_col = float(max(it - geo_iter_bound, 1))
-                t_row = (geo_cols * t_geo + col_cols * t_col
-                         + rest_cols * t_geo)
+                t_row = torch.where(is_col, t_col, t_geo)
                 lr_row = lr_rows[0] if stage_geo else lr_rows[1]
                 ts = [t_row] + [t_col] * n_col + [t_geo] * (n_dec - n_col)
                 lr_all = [lr_row] + [lrs[0]] * n_dec
@@ -486,6 +502,8 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                     ts.append(t_geo)
                     lr_all.append(ba["lr"] if ba["lo"] <= it <= ba["hi"]
                                   else 0.0)
+                # every leaf is stepped in place: the decoders' parameters,
+                # the packed copy and the exposure and camera copies
                 params = [p.detach() for p in leaves]
                 if ms.fused_adam:
                     p0, s0 = adam.update_rows(
@@ -495,20 +513,14 @@ def map_optimize(ms: MapperStatic, rc: R.RenderConfig, dec, packed, index,
                                      (v_live, s0["v"])):
                         if src is not dst:   # the CPU's plain version
                             dst.copy_(src)
-                    new, rest = adam.update(
-                        params[1:], grads[1:], {"m": state["m"][1:],
-                                                "v": state["v"][1:]},
-                        ts[1:], lr_all[1:])
-                    new = [params[0]] + new
-                    state = {"m": state["m"][:1] + rest["m"],
-                             "v": state["v"][:1] + rest["v"]}
+                    adam.update(params[1:], grads[1:],
+                                {"m": state["m"][1:], "v": state["v"][1:]},
+                                ts[1:], lr_all[1:], in_place=True)
                 else:
-                    grads[0] = grads[0] * frustum_f[:, None]
-                    new, state = adam.update(params, grads, state, ts,
-                                             lr_all)
-                for p, q in zip(leaves[1:1 + n_dec], new[1:1 + n_dec]):
-                    p.copy_(q)
-                leaves = [new[0]] + leaves[1:1 + n_dec] + new[1 + n_dec:]
+                    # rows past the cloud have no gradient to mask
+                    grads[0][:n_rows].mul_(frustum_f[:n_rows, None])
+                    adam.update(params, grads, state, ts, lr_all,
+                                in_place=True, rows=rows)
             if chunk_hook is not None and (it + 1) % chunk == 0 \
                     and it + 1 < n_iters:
                 chunk_hook(it + 1 - chunk, it + 1, leaves[0].detach(), stats)

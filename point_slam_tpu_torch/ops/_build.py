@@ -111,8 +111,14 @@ def load_library() -> ctypes.CDLL:
                                  + [f] * 5 + [vp])
         lib.block_topk.argtypes = ([vp] * 4 + [i] * 8 + [vp] * 3 + [i] * 2
                                    + [vp] * 2 + [i] * 6 + [vp])
+        ip = ctypes.POINTER(i)
+        lib.multi_adam.argtypes = ([i, ctypes.POINTER(ctypes.c_ulonglong),
+                                    ctypes.POINTER(f), ip, ip]
+                                   + [f] * 5 + [vp])
+        lib.multi_adam_limits.argtypes = [ip, ip]
+        lib.multi_adam_limits.restype = None
         for fn in (lib.ray_topk, lib.ray_topk_occupancy, lib.row_adam,
-                   lib.block_topk):
+                   lib.block_topk, lib.multi_adam):
             fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,7 @@
 """The port on the card: the CUDA ray top-k kernels (K1-K3), the fused
-row-Adam (K4) and the block top-k of the kNN study (P1-P6) against their
-plain PyTorch versions, and the CUDA path of ray_grid_knn against the CPU
-path.
+row-Adam (K4), the multi-tensor Adam (multi_adam) and the block top-k of
+the kNN study (P1-P6) against their plain PyTorch versions, and the CUDA
+path of ray_grid_knn against the CPU path.
 
 These need an NVIDIA GPU and nvcc and skip elsewhere. The file imports
 neither JAX nor tests/conftest.py's helpers, so on a card without JAX run
@@ -299,6 +299,83 @@ def test_row_adam_kernel_equals_plain_on_cuda():
                           {"m": m[:, :70].contiguous(),
                            "v": v[:, :70].contiguous()}, t_row[:70],
                           lr_row[:70], mask)
+
+
+def adam_leaves(rng, dev, n=5000, live=3000, f=10, extra=0):
+    """The mapper's step at a small size: an (n, 72) leaf with (72,) step
+    counts and learning rates whose rows past ``live`` have zero gradient
+    and moments; decoder-shaped tensors, some with element counts no
+    multiple of 4, with numbers for t and lr; an (f, 7) camera leaf with
+    learning rate 0; ``extra`` more small tensors."""
+    shapes = ([(n, 72), (128, 52), (128,), (3, 10), (3,), (3, 128),
+               (32, 128), (7, 3), (f, 7)]
+              + [(int(rng.integers(1, 70)),) for _ in range(extra)])
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev)
+    params = [draw(s) for s in shapes]
+    grads = [draw(s) for s in shapes]
+    m = [draw(s, 0.1) for s in shapes]
+    v = [draw(s, 0.01).abs() for s in shapes]
+    for x in (grads[0], m[0], v[0]):
+        x[live:] = 0.0
+    t = [torch.from_numpy(rng.integers(1, 40, 72).astype(np.float32)).to(
+        dev)] + [float(rng.integers(1, 300)) for _ in shapes[1:]]
+    lr = [torch.from_numpy(rng.uniform(1e-4, 3e-2, 72).astype(
+        np.float32)).to(dev)] + [float(rng.uniform(1e-4, 1e-2))
+                                 for _ in shapes[1:]]
+    lr[len(shapes) - extra - 1] = 0.0      # the cameras
+    return params, grads, m, v, t, lr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one table", "live rows", "two tables"])
+def test_multi_adam_in_place_equals_update_on_cuda(case):
+    """update(..., in_place=True) launches multi_adam once (per table of
+    tensors) and writes p, m and v in place, EQUAL (0 ulp) to update(...);
+    the leaf's zero-gradient rows come back bit for bit, stepped
+    (rows None) or left out (rows = the live prefix)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(23)
+    max_tensors, _ = tadam._multi_adam_limits()
+    params, grads, m, v, t, lr = adam_leaves(
+        rng, dev, extra=max_tensors if case == "two tables" else 0)
+    want_p, want = tadam.update(params, grads, {"m": m, "v": v}, t, lr)
+    p_in, m_in, v_in = ([x.clone() for x in xs] for xs in (params, m, v))
+    before = tadam.LAUNCHES["multi_adam"]
+    got_p, got = tadam.update(
+        p_in, grads, {"m": m_in, "v": v_in}, t, lr, in_place=True,
+        rows=[3000] + [None] * (len(params) - 1) if case == "live rows"
+        else None)
+    torch.cuda.synchronize()
+    assert tadam.LAUNCHES["multi_adam"] == before + -(-len(params)
+                                                       // max_tensors)
+    assert len(params) <= max_tensors or case == "two tables"
+    for got_xs, given, want_xs in ((got_p, p_in, want_p),
+                                   (got["m"], m_in, want["m"]),
+                                   (got["v"], v_in, want["v"])):
+        assert all(a is b for a, b in zip(got_xs, given))
+        for a, b in zip(given, want_xs):
+            assert torch.equal(a, b)
+    assert torch.equal(p_in[0][3000:], params[0][3000:])
+    assert torch.equal(p_in[8], params[8])             # learning rate 0
+    assert not torch.equal(p_in[1], params[1])
+
+
+@pytest.mark.cuda
+def test_multi_adam_refuses_misaligned_tensors_on_cuda():
+    """A tensor whose storage starts off a 16-byte boundary is refused
+    before any launch."""
+    dev = cuda_or_skip()
+    p = torch.zeros(129, device=dev)[1:].view(4, 32)    # 4 bytes off
+    before = tadam.LAUNCHES["multi_adam"]
+    with pytest.raises(ValueError, match="aligned"):
+        tadam.update([p], [torch.ones(4, 32, device=dev)],
+                     {"m": [torch.zeros(4, 32, device=dev)],
+                      "v": [torch.zeros(4, 32, device=dev)]}, 1.0, 1e-3,
+                     in_place=True)
+    assert tadam.LAUNCHES["multi_adam"] == before
 
 
 @pytest.mark.cuda

@@ -174,6 +174,76 @@ def test_map_optimize_group_semantics(setup):
                 p.copy_(q)
 
 
+def test_map_optimize_hands_adam_what_the_benchmark_captures(setup,
+                                                            monkeypatch):
+    """The benchmark's check (port_bench/core/check.py::Steps) wraps
+    adam.update through the module attribute and reads its arguments:
+    one call an iteration; params[0] the packed leaf that the next
+    _losses renders (its storage), at full size with its moments; its
+    gradient the raw one times the frustum rows; params[1:] the trained
+    decoder parameters, found by data_ptr. The in-place step over the live
+    rows equals the functional step over every row."""
+    scene, _, tms, (color, depth, rq, c2w) = setup
+    packed0 = scene.tcloud.packed
+    dec = scene.tdec
+    kept = [p.detach().clone() for p in dec.parameters()]
+    npts = int(scene.tcloud.n_points)
+    frustum = torch.arange(packed0.shape[0]) < npts
+    frustum[: npts // 2] = False
+    names = {p.data_ptr(): n for n, p in dec.named_parameters()}
+    real_update, real_losses = TM.adam.update, TM._losses
+    real_grad = torch.autograd.grad
+    calls, rendered, raw = [], [], []
+
+    def losses(ms, rc, dec_, packed, *a, **k):
+        rendered.append(packed.data_ptr())
+        return real_losses(ms, rc, dec_, packed, *a, **k)
+
+    def grad(outputs, inputs, *a, **k):
+        out = real_grad(outputs, inputs, *a, **k)
+        raw.append(out[0].clone())
+        return out
+
+    def update(params, grads, state, t, lr, *a, **k):
+        clone = lambda xs: [x.clone() for x in xs]        # noqa: E731
+        want, _ = real_update(clone(params), grads, {
+            "m": clone(state["m"]), "v": clone(state["v"])}, t, lr)
+        calls.append(dict(
+            ptr=params[0].data_ptr(), grad=grads[0].clone(),
+            shapes={tuple(x.shape) for x in (params[0], grads[0],
+                                             state["m"][0], state["v"][0])},
+            names=[names.get(p.data_ptr()) for p in params[1:]]))
+        out = real_update(params, grads, state, t, lr, *a, **k)
+        calls[-1]["equal"] = all(torch.equal(x, y)
+                                 for x, y in zip(out[0], want))
+        return out
+
+    monkeypatch.setattr(TM.adam, "update", update)
+    monkeypatch.setattr(TM, "_losses", losses)
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    try:
+        TM.map_optimize(
+            tms, TR.RenderConfig(), dec, packed0, scene.tindex,
+            (t(color), t(depth), t(rq), t(c2w)), 2, 200, frustum,
+            [0.001, 0.03, 0.0], [0.005, 0.005, 0.005], 1.0, 0, 3,
+            generator=torch.Generator().manual_seed(0), n_live=npts)
+    finally:
+        with torch.no_grad():
+            for p, q in zip(dec.parameters(), kept):
+                p.copy_(q)
+    trained = [nm for nm, _ in dec.named_parameters()
+               if nm.startswith("col.")]
+    assert len(calls) == 3 and len(rendered) == 3 and len(raw) == 3
+    for it, c in enumerate(calls):
+        assert c["ptr"] == rendered[it]
+        if it + 1 < len(rendered):
+            assert c["ptr"] == rendered[it + 1]
+        assert c["shapes"] == {tuple(packed0.shape)}
+        assert torch.equal(c["grad"], raw[it] * frustum.float()[:, None])
+        assert c["names"] == trained
+        assert c["equal"]
+
+
 def test_ensure_capacity_grows_cloud_and_table():
     _, tcfg = tiny_cfgs(4)
     tcfg["cuda"]["point_capacity_init"] = 1 << 10
