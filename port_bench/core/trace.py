@@ -11,14 +11,21 @@ whose bounds the driver took on the profiler's clock (nanoseconds since
 the epoch). Idle time is the window's time with no kernel, copy or memset
 on the device; a gap is named after the span and the runtime call that
 launched the work that ends it (``map_frame:cudaLaunchKernel``).
+
+Given the program's own span records (``--trace 1``), each operation is
+also credited to the innermost program span open at its launch
+(``core/stages.py``): device seconds and operations by stage, each
+operation's owner, and gaps named after both spans
+(``map_frame/map.backward:cudaLaunchKernel``).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
 
 def start(device: str = "cuda"):
     import torch
@@ -34,14 +41,23 @@ def start(device: str = "cuda"):
 
 
 def reduce(prof, t0_ns: int, t1_ns: int,
-           spans: Dict[str, List[Tuple[int, int]]]) -> Dict[str, Any]:
+           spans: Dict[str, List[Tuple[int, int]]],
+           records: Optional[Sequence[Any]] = None
+           ) -> Dict[str, Any]:
     """The window [t0_ns, t1_ns] of a stopped profiler: busy seconds,
     device seconds launched inside each span name, the device operations
     by time and the idle gaps by span and runtime call (ten each).
 
     Device events are those on a CUDA device; the host events of a trace
     of CUDA activity are the runtime calls, each sharing its correlation
-    id with the device work it launched."""
+    id with the device work it launched.
+
+    With the program's span ``records`` also ``by_stage`` (device seconds
+    and operations by the innermost program span that launched them),
+    ``stage_owner`` (each operation's record index, -1 for none, in the
+    order of the window's operations by start), ``stage_by_thread``
+    (whether the launching thread matched), and gaps named
+    ``<span>/<program span>:<runtime call>``."""
     from torch.autograd import DeviceType
     cuda = DeviceType.CUDA
     launches: Dict[int, Tuple[int, Any]] = {}        # corr: t, event
@@ -83,6 +99,15 @@ def reduce(prof, t0_ns: int, t1_ns: int,
         in_span[name] = float(dur[inside].sum()) * 1e-9
         if name != "ray_grid_knn":
             where[inside] = name
+    owner = None
+    if records:
+        # imported here: this module also loads on its own, by path, where
+        # the harness's ``core`` package is not importable
+        from core import stages
+        lthread = np.array([launches[c][1].start_thread_id()
+                            if c in launches else -1
+                            for _, _, c, _ in device], np.int64)
+        owner, by_thread = stages.credit(records, launch, lthread)
     # idle gaps by the span and runtime call that launched what ends them
     gaps: Dict[str, float] = defaultdict(float)
     nxt = 0
@@ -93,10 +118,20 @@ def reduce(prof, t0_ns: int, t1_ns: int,
             break
         ln = launches.get(device[nxt][2])
         call = ln[1].name() if ln else "unattributed"
-        gaps[f"{where[nxt] or 'loop'}:{call}"] += (s_next - e_prev) * 1e-9
+        span = where[nxt] or "loop"
+        if owner is not None:
+            o = owner[nxt]
+            span += "/" + (records[o].name if o >= 0 else "-")
+        gaps[f"{span}:{call}"] += (s_next - e_prev) * 1e-9
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     top_gaps = sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
-    return {"busy_s": busy * 1e-9, "window_s": (t1_ns - t0_ns) * 1e-9,
-            "device_s_in_span": in_span, "n_device_ops": len(device),
-            "device_ops": [[n, v] for n, v in top],
-            "idle_gaps": [[n, v] for n, v in top_gaps]}
+    out = {"busy_s": busy * 1e-9, "window_s": (t1_ns - t0_ns) * 1e-9,
+           "device_s_in_span": in_span, "n_device_ops": len(device),
+           "device_ops": [[n, v] for n, v in top],
+           "idle_gaps": [[n, v] for n, v in top_gaps]}
+    if owner is not None:
+        out["by_stage"] = stages.by_stage(records, owner, device, t0_ns,
+                                          t1_ns)
+        out["stage_owner"] = owner
+        out["stage_by_thread"] = by_thread
+    return out

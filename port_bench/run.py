@@ -12,7 +12,11 @@ number of mapping periods within ``--seconds`` (``core/window.py``). With
 ``--trace 1`` the cell's per-layer metrics are reported; with ``--trace
 0`` its end-to-end ones. The window runs under ``torch.profiler``
 (CUDA activity only, started in set-up) whenever a metric reported reads
-the device trace, as the end-to-end ``device_ms_per_frame`` does.
+the device trace, as the end-to-end ``device_ms_per_frame`` does. With
+``--trace 1`` the program's own spans and counters record too
+(``PointSLAM.spans``, from the moment it is built), and the stage
+figures are read from them and from the trace (``core/stages.py``); with
+``--trace 0`` they stay off.
 
 After the window: the peak device memory, the check that no JAX module
 was loaded, the reader's depth against what was written, and the renders
@@ -78,7 +82,8 @@ from core import window as W, yardstick  # noqa: E402
 
 class Run:
     """What a run measured, for the metric readers: the window's spans
-    and period marks, its trace (``--trace 1``), the counts the wrappers
+    and period marks, its trace (``--trace 1``), the program's span
+    records (``--trace 1``; None otherwise), the counts the wrappers
     kept, and the configuration."""
 
     def __init__(self, **kw):
@@ -177,6 +182,8 @@ def _run(args, device, entry, traffic, cfg, tmp, renderer, knn_mod,
     t_written = time.perf_counter()
     slam = PointSLAM(copy.deepcopy(cfg), input_folder=data,
                      output=os.path.join(tmp, "out"), device=device)
+    if args.trace:
+        slam.spans.enable()
     t_built = time.perf_counter()
     it_t, it_m, rng = draws(args.seed, cfg)
     capture = check.Capture(renderer)
@@ -279,6 +286,7 @@ def _run(args, device, entry, traffic, cfg, tmp, renderer, knn_mod,
     bad_modules = guard.loaded()
     if bad_modules:
         return {"forbidden": bad_modules}
+    records = slam.spans.records() if slam.spans.on else None
     traced = None
     if state["prof"] is not None:
         marks = [m for m in drv.marks if m.frame == every + frames]
@@ -288,12 +296,16 @@ def _run(args, device, entry, traffic, cfg, tmp, renderer, knn_mod,
         for x in drv.spans:
             by_name.setdefault(x.name, []).append((x.t0_ns, x.t1_ns))
         traced = trace.reduce(state["prof"], state["t_open_ns"], t1_ns,
-                              by_name)
+                              by_name, records)
         state["prof"] = None
         print(f"trace: {traced['n_device_ops']} device operations, "
               f"{state['knn_calls']} kNN calls, busy "
               f"{traced['busy_s']!r} s of {traced['window_s']!r}, reduced in "
-              f"{time.perf_counter() - t_r:.1f} s", file=sys.stderr)
+              f"{time.perf_counter() - t_r:.1f} s"
+              + ("" if not records else
+                 f"; {len(records)} span records, stages matched by "
+                 f"{'thread' if traced['stage_by_thread'] else 'time'}"),
+              file=sys.stderr)
     est = slam.estimate_c2w_list
     lo, hi = every + 1, every + frames
     failed = int(sum(not np.isfinite(est[i]).all() for i in range(lo,
@@ -327,7 +339,7 @@ def _run(args, device, entry, traffic, cfg, tmp, renderer, knn_mod,
         else:
             nums[f"{kind}.step_gap"] = math.inf
     run = Run(every=every, frames=frames, window_s=window_s,
-              spans=spans, marks=marks,
+              spans=spans, marks=marks, records=records,
               setup_s=setup_s, trace=traced, cfg=cfg, entry=entry,
               knn_bound_s=state["knn_bound_s"],
               knn_calls=state["knn_calls"], render_calls=calls,

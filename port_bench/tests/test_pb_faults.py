@@ -111,12 +111,17 @@ def _is_pose(params):
 
 def _unchanged(update, which):
     """A step that returns its state unchanged: Adam hands back the
-    mapper's map rows, or the tracker's camera, as it was given them."""
+    mapper's map rows, or the tracker's camera, as it was given them.
+    The mapper's step writes its leaves in place, so the map rows are
+    kept before the step and written back into the same tensor after."""
     @functools.wraps(update)
     def broken(params, grads, state, *a, **k):
+        keep = (params[0].clone() if which == "map" and _is_map(params)
+                else None)
         new, st = update(params, grads, state, *a, **k)
-        if which == "map" and _is_map(params):
-            new = [params[0].clone()] + list(new[1:])
+        if keep is not None:
+            params[0].copy_(keep)
+            new = [params[0]] + list(new[1:])
         if which == "pose" and _is_pose(params):
             new = [p.clone() for p in params]
         return new, st

@@ -149,3 +149,30 @@ def test_device_time_per_frame(trace, frames, want):
         pass
     R.trace, R.frames = trace, frames
     assert manifest.reader("device_ms_per_frame").read(R) == want
+
+
+@pytest.mark.parametrize("name,source", [
+    ("tracker.iter_host_ms", "program_span"),
+    ("tracker.ops_per_iter", "device_trace"),
+    ("mapper.iter_host_ms", "program_span"),
+    ("mapper.ops_per_iter", "device_trace"),
+    ("mapper.densify_ms", "program_span"),
+    ("keyframes.window_ms", "program_span"),
+    ("host.sync_ms", "program_span"),
+    ("host.syncs_per_iter", "program_span"),
+    ("knn.fallback_pct", "program_counter")])
+def test_a_stage_metric_is_listed_with_its_reader(bm, name, source):
+    """The stage figures read from the program's spans: each listed once,
+    for every cell (no ``workloads``), moving ``device_ms_per_frame``, in
+    a layer whose other metrics give it letter for letter, with its
+    reader beside it."""
+    entries = [m for m in bm["per_layer"] if m["name"] == name]
+    assert len(entries) == 1
+    m = entries[0]
+    assert m["source"] == source and "workloads" not in m
+    assert m["moves"] == "device_ms_per_frame"
+    assert set(m) == {"name", "unit", "better", "source", "layer", "moves"}
+    prefix = m["layer"].split(":")[0]
+    assert {x["layer"] for x in bm["per_layer"]
+            if x["layer"].split(":")[0] == prefix} == {m["layer"]}
+    assert callable(manifest.reader(name).read)
